@@ -1,0 +1,41 @@
+"""Global configuration of the PyTorch/CUDA port.
+
+The reference library computes in Float64 and its test tolerances (1e-10
+relative residuals) require double precision, so f64 is the default dtype
+here too.  Unlike the JAX package there is no process-wide x64 switch:
+tensors carry their dtype, and the device follows the input tensors.
+
+Reduced-precision products are switched off at import.  On the TPU the
+matrix unit's default bf16 passes made CG on the finite-difference pencils
+diverge (the JAX package forces "highest" matmul precision for that
+reason); the CUDA analog is TF32, which keeps about three decimal digits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+#: Default element type for problem data and solver internals.
+DEFAULT_DTYPE = torch.float64
+
+#: Relative truncation factor used by low-rank column compression: the
+#: reference's ``100 * maximum(abs, λ) * eps()`` cut.
+COMPRESSION_RTOL_FACTOR = 100.0
+
+
+def default_dtype() -> torch.dtype:
+    return DEFAULT_DTYPE
+
+
+def eps(dtype: torch.dtype | None = None) -> float:
+    """Machine epsilon of `dtype` (default: the default dtype)."""
+    return float(torch.finfo(dtype or DEFAULT_DTYPE).eps)
+
+
+def device() -> torch.device:
+    """The CUDA device if one is present, else the CPU (for library callers
+    that build their own inputs; the solvers follow their input tensors)."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")

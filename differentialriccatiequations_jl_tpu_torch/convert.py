@@ -1,0 +1,62 @@
+"""Build port objects from the JAX package's arrays, given as numpy arrays.
+
+Lets a test feed both packages identical operators, factors and
+precomputed shift tables (so, for example, block-inverse rounding is not
+compared twice).  Never imports JAX: callers pass ``np.asarray(...)`` of the
+JAX leaves, and static fields as plain Python values.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .lowrank import LowRank
+from .models.compiled import DiaShiftOps
+from .ops.blocklinear import Krylov
+from .ops.dia import DiaOp
+
+
+def _t(a, device):
+    return None if a is None else torch.tensor(np.asarray(a), device=device)
+
+
+def dia_op_from_numpy(data, data_t, offsets, n, nnz, symmetric=None,
+                      device=None) -> DiaOp:
+    """`DiaOp` from its diagonal storage."""
+    return DiaOp(data=_t(data, device), data_t=_t(data_t, device),
+                 offsets=tuple(int(o) for o in offsets), n=int(n),
+                 nnz_=int(nnz), symmetric=symmetric)
+
+
+def lowrank_from_numpy(L, D, k, device=None) -> LowRank:
+    """`LowRank` from padded factors and the active rank."""
+    return LowRank(L=_t(L, device), D=_t(D, device), k=int(k))
+
+
+def krylov_from(cfg) -> Krylov | None:
+    """Port `Krylov` config from any object carrying the same fields (the
+    JAX package's ``Krylov`` dataclass included)."""
+    if cfg is None:
+        return None
+    return Krylov(method=cfg.method, tol=float(cfg.tol), atol=float(cfg.atol),
+                  maxiter=int(cfg.maxiter), negate=bool(cfg.negate))
+
+
+def dia_shift_ops_from_numpy(data, data_t, prec_inv, offsets, n, nnz, cfg,
+                             et_data=None, et_data_t=None, pair_prec_re=None,
+                             pair_prec_im=None, pair_index=None, pair_cfg=None,
+                             device=None) -> DiaShiftOps:
+    """`DiaShiftOps` from every leaf of the JAX package's ``DiaShiftOps``,
+    the pair tables included."""
+    return DiaShiftOps(
+        data=_t(data, device), data_t=_t(data_t, device),
+        prec_inv=_t(prec_inv, device),
+        offsets=tuple(int(o) for o in offsets), n=int(n), nnz_=int(nnz),
+        cfg=krylov_from(cfg),
+        et_data=_t(et_data, device), et_data_t=_t(et_data_t, device),
+        pair_prec_re=_t(pair_prec_re, device),
+        pair_prec_im=_t(pair_prec_im, device),
+        pair_index=(None if pair_index is None
+                    else tuple(int(i) for i in np.asarray(pair_index))),
+        pair_cfg=krylov_from(pair_cfg))

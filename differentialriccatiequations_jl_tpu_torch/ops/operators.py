@@ -1,0 +1,107 @@
+"""Linear operators: dense and low-rank-updated.
+
+Port of the JAX package's ``ops/operators.py``.  The contract every
+operator meets:
+
+* ``op.mm(X)``  — ``A @ X``,
+* ``op.tmm(X)`` — ``Aᵀ @ X``,
+* ``op.to_dense()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .dia import DiaOp, dia_lin_comb
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseOp:
+    """Dense n×n operator."""
+
+    M: torch.Tensor
+
+    def mm(self, X: torch.Tensor) -> torch.Tensor:
+        return self.M @ X
+
+    def tmm(self, X: torch.Tensor) -> torch.Tensor:
+        return self.M.T @ X
+
+    def to_dense(self) -> torch.Tensor:
+        return self.M
+
+    def adjoint(self) -> "DenseOp":
+        return DenseOp(self.M.T)
+
+
+@dataclasses.dataclass(frozen=True)
+class LowRankUpdateOp:
+    """Lazy ``A + α⁻¹ U V`` with low-rank ``U (n, m)``, ``V (m, n)``: kept
+    lazy so Sherman–Morrison–Woodbury solves reuse the base operator's
+    solver where only the feedback term ``B K`` changes."""
+
+    A: object  # base operator (DenseOp / DiaOp)
+    alpha: float | torch.Tensor  # scalar
+    U: torch.Tensor  # (n, m)
+    V: torch.Tensor  # (m, n)
+
+    def mm(self, X: torch.Tensor) -> torch.Tensor:
+        return self.A.mm(X) + (1.0 / self.alpha) * (self.U @ (self.V @ X))
+
+    def tmm(self, X: torch.Tensor) -> torch.Tensor:
+        return self.A.tmm(X) + (1.0 / self.alpha) * (self.V.T @ (self.U.T @ X))
+
+    def to_dense(self) -> torch.Tensor:
+        return self.A.to_dense() + (1.0 / self.alpha) * (self.U @ self.V)
+
+    def adjoint(self) -> "LowRankUpdateOp":
+        # (A + α⁻¹UV)ᵀ = Aᵀ + α⁻¹ Vᵀ Uᵀ
+        return LowRankUpdateOp(self.A.adjoint(), self.alpha, self.V.T, self.U.T)
+
+
+def _scalar(alpha):
+    return alpha if isinstance(alpha, torch.Tensor) else float(alpha)
+
+
+def lr_update(A, alpha, U: torch.Tensor, V: torch.Tensor) -> LowRankUpdateOp:
+    """``A + α⁻¹UV``."""
+    return LowRankUpdateOp(as_operator(A), _scalar(alpha), U, V)
+
+
+def as_operator(A):
+    """Coerce a raw tensor to an operator; pass operators through."""
+    if hasattr(A, "mm"):
+        return A
+    return DenseOp(torch.as_tensor(A))
+
+
+def lin_comb(A, c, E):
+    """Operator for ``A + c·E`` (e.g. the Rosenbrock coefficient
+    ``A − E/(2τ)``).  Low-rank updates distribute over the base; dense
+    bases combine eagerly; banded bases combine on their shared diagonals."""
+    A = as_operator(A)
+    E = as_operator(E)
+    if isinstance(A, LowRankUpdateOp):
+        return LowRankUpdateOp(lin_comb(A.A, c, E), A.alpha, A.U, A.V)
+    if isinstance(A, DenseOp) and isinstance(E, DenseOp):
+        return DenseOp(A.M + c * E.M)
+    if isinstance(A, DiaOp) and isinstance(E, DiaOp):
+        return dia_lin_comb(A, c, E)
+    raise TypeError(f"lin_comb of {type(A).__name__} and {type(E).__name__} "
+                    "is not supported")
+
+
+def op_astype(op, dtype: torch.dtype):
+    """Cast an operator's stored data to ``dtype``."""
+    if isinstance(op, LowRankUpdateOp):
+        alpha = op.alpha.to(dtype) if isinstance(op.alpha, torch.Tensor) else op.alpha
+        return LowRankUpdateOp(op_astype(op.A, dtype), alpha,
+                               op.U.to(dtype), op.V.to(dtype))
+    if isinstance(op, DenseOp):
+        return DenseOp(op.M.to(dtype))
+    if isinstance(op, DiaOp):
+        return dataclasses.replace(op, data=op.data.to(dtype),
+                                   data_t=op.data_t.to(dtype))
+    raise TypeError(f"cannot cast operator {type(op)}")

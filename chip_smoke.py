@@ -3,14 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (the DIA SpMM, ``csrc/dia_spmm.cu``) from the sources in
-this checkout, holds it against its plain PyTorch version on the card and
-times both, checks one Ros1 step at n=256 on the card against the same
-step on the CPU, and then drives the port's main path at full size: LRSIF
-Ros1 GDRE steps on the n=79841 Rail surrogate (3 steps with the
-pair-encoded shift buffer, BiCGStab; 1 with an all-real buffer, CG),
-counting K1 launches.  Exits non-zero, without the final ``"ok"`` line, if
-there is no CUDA device or any phase fails.  Imports nothing of JAX.
+Builds kernels K1 (the DIA SpMM, ``csrc/dia_spmm.cu``) and K2 (the
+block-ELL SpMM, ``csrc/bell_spmm.cu``) from the sources in this checkout,
+both compilers started together, and then:
+
+1. holds each kernel against its plain PyTorch version on the card, at the
+   n=79841 Rail surrogate and the widths the steps use, and times the
+   kernel, the plain version and one ``torch.sparse`` call (the yardstick,
+   which the port never calls);
+2. checks one Ros1 step at n=256 on the card against the same step on the
+   CPU;
+3. drives the DIA path at full size: LRSIF Ros1 GDRE steps on the n=79841
+   Rail surrogate (3 steps with the pair-encoded shift buffer, BiCGStab; 1
+   with an all-real buffer, CG), counting K1 launches;
+4. checks the block-ELL Ros2 sweep at n=1357 on the card against the CPU;
+5. drives the block-ELL path at full size: `solve_gdre_ros2_compiled` on
+   the n=79841 Rail surrogate (bs=128, f64, 16 Penzl shifts), counting K2
+   launches.
+
+Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
+device or any phase fails.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -20,32 +32,65 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
 from differentialriccatiequations_jl_tpu_torch.entry import SHIFTS, entry
+from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
 from differentialriccatiequations_jl_tpu_torch.kernels import build
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
-from differentialriccatiequations_jl_tpu_torch.lowrank import lowrank, lr_with_capacity
+from differentialriccatiequations_jl_tpu_torch.lowrank import lowrank, lr_compress, lr_with_capacity
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
-    CompiledConfig, _residual_norm, build_dia_shift_ops, pair_encode_shifts,
-    ros1_initial_residual, ros1_step_compiled)
+    _ROS2_GAMMA, CompiledConfig, _residual_norm, build_dia_shift_ops,
+    pair_encode_shifts, ros1_initial_residual, ros1_step_compiled,
+    solve_gdre_ros2_compiled)
+from differentialriccatiequations_jl_tpu_torch.models.problems import GDREProblem
+from differentialriccatiequations_jl_tpu_torch.models.rosenbrock_lowrank import _ros2_rhs1
+from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_shifts_host
 from differentialriccatiequations_jl_tpu_torch.ops import blocklinear
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil, shifted_dia
-from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb
+from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb, op_astype
+from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil, shifted_bell
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
 
+CARD = "cuda"
 N_FULL = 79841
-KERNEL_SOURCE = "differentialriccatiequations_jl_tpu_torch/csrc/dia_spmm.cu"
-TPU_KERNEL = "differentialriccatiequations_jl_tpu/ops/dia.py:281"
-# Kernel vs plain: the summation order is the same, only FMA contraction
-# differs, so the error is a few ulps of the largest output entry.
+N_SMALL = 1357
+BS = 128
+KERNELS = {
+    "dia_spmm": ("differentialriccatiequations_jl_tpu_torch/csrc/dia_spmm.cu",
+                 "differentialriccatiequations_jl_tpu/ops/dia.py:281"),
+    "bell_spmm": ("differentialriccatiequations_jl_tpu_torch/csrc/bell_spmm.cu",
+                  "differentialriccatiequations_jl_tpu/ops/sparse.py:163"),
+}
+# Kernel vs plain: K1 sums in the plain version's order, only FMA
+# contraction differs; K2 sums over slots then block columns in order, the
+# plain einsum in another order.  Either way a few ulps of the largest
+# output entry.
 REL_TOL = {"float64": 1e-12, "float32": 1e-5}
-# n=256 step, card vs CPU: Krylov tolerance 10·eps amplified by the ADI.
+# Steps and sweeps, card vs CPU: Krylov tolerance 10·eps amplified by the ADI.
 STEP_REL_TOL = 1e-9
 TIMED_CALLS = 50
+# The card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W):
+# 3.35 TB/s of HBM; 67 TFLOP/s for f64 (tensor cores) and for f32.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float64: 67e12, torch.float32: 67e12}
+# The full-size block-ELL sweep: the reference bench's north-star Ros2
+# configuration (tau 10, 16 Penzl shifts, capacity 96, r_res 48, 5 steps).
+TAU = 10.0
+FULL_STEPS = 5
+SMALL_STEPS = 3
+SWEEP_CFG = CompiledConfig(maxiters=60, compression_interval=10, r_res=48)
+CAPACITY = 96
+# The n=1357 card-vs-CPU check runs at a capacity that holds every column
+# the stage ADIs add.  At 96 the stage iterates overflow and `lr_add` drops
+# columns (the JAX package does the same); how many depends on ranks that
+# rounding decides, so the two devices drift apart by 1e-6.
+SMALL_CAPACITY = 160
 
 
 class PhaseError(RuntimeError):
@@ -90,27 +135,63 @@ def time_ms(fn):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends)), host_ms
 
 
+def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate.  (ms, bound_by)."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_build():
-    """Build K1 from the checkout's source and load it."""
+    """Build K1 and K2 from the checkout's sources, both compilers started
+    together, and load them."""
     t0 = time.perf_counter()
-    path = build.build("dia_spmm")
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        paths = list(pool.map(build.build, KERNELS))
     k1._kernel(torch.float64)
-    log(f"[build] K1 built and loaded in {time.perf_counter() - t0:.2f} s: {path.name}")
-    for line in build.build_log("dia_spmm").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    k2._kernel(torch.float64)
+    log(f"[build] K1 and K2 built and loaded in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(p.name for p in paths))
+    for name in KERNELS:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name} ptxas: {line.strip()}")
+
+
+def check_close(name, got, ref, dname):
+    """Max abs error of ``got`` against ``ref``; fails beyond the
+    relative-to-max tolerance of the dtype."""
+    torch.cuda.synchronize()
+    abs_err = float((got - ref).abs().max())
+    rel_err = abs_err / max(float(ref.abs().max()), 1e-300)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+    check(rel_err <= REL_TOL[dname], f"{name}: rel err {rel_err:.3e} > {REL_TOL[dname]}")
+    return abs_err, rel_err
+
+
+def csr_on(M, dt, dev):
+    """``torch.sparse`` CSR copy of a scipy matrix (the yardstick only)."""
+    M = sp.csr_matrix(M)
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(M.indptr, dtype=torch.int64), torch.as_tensor(M.indices, dtype=torch.int64),
+        torch.as_tensor(M.data), size=M.shape, dtype=dt, device=dev)
 
 
 def phase_kernels(E, A, dev):
     """K1 against its plain version on the card, every product the step
-    uses, at the Rail size; times both.  Returns (max_abs_err, timings)."""
+    uses, at the Rail size; times both, and at q = 48 one ``torch.sparse``
+    CSR product of the same matrix.  Returns (max_abs_err, timings,
+    library timings, the f64 mmT q=48 bound)."""
     rng = np.random.default_rng(0)
     max_abs = 0.0
-    timings = {}
+    timings, library = {}, {}
+    F_host = (A.T - E.T).tocsr()
     for dt in (torch.float64, torch.float32):
         dname = str(dt).removeprefix("torch.")
         E_op, A_op = dia_pencil(E, A, dtype=dt, device=dev)
         F = shifted_dia(E_op, A_op, -1.0)  # the ADI's hot operator Aᵀ + μEᵀ
+        F_csr = csr_on(F_host, dt, dev)
         nnz = F.nnz
         offs, offs_t = F.offsets, tuple(-o for o in F.offsets)
         N = F.N
@@ -153,7 +234,89 @@ def phase_kernels(E, A, dev):
                     f"{nnz / (k_ms * 1e-3) / 1e9:7.2f} Gnnz/s (host {k_host * 1e3:6.1f} us/call)"
                     f" | plain {p_ms * 1e3:8.2f} us {nnz / (p_ms * 1e-3) / 1e9:7.2f} Gnnz/s"
                     f" (host {p_host * 1e3:6.1f} us/call)")
-    return max_abs, timings
+                if q == 48 and op in ("mm", "mmT"):
+                    lib = (lambda: F_csr @ X) if op == "mm" else (lambda: F_csr @ Xt.T)
+                    ref = plain() if op == "mm" else plain().T
+                    check_close(f"torch.sparse CSR {op} {dname} q={q}", lib(), ref, dname)
+                    library[(op, dname, q)] = time_ms(lib)[0]
+                    log(f"[kernels] {op:9s} {dname} q={q:3d}: torch.sparse CSR "
+                        f"{library[(op, dname, q)] * 1e3:8.2f} us (yardstick)")
+    # K1's bound at the f64 mmT q=48 call: data, operand and result once each.
+    N, q, nd = F.N, 48, len(F.offsets)
+    bound = bound_ms(8 * (nd * N + 2 * q * N), 2 * nd * N * q, torch.float64)
+    log(f"[kernels] K1 bound, f64 mmT q=48: {bound[0] * 1e3:.2f} us ({bound[1]})")
+    return max_abs, timings, library, bound
+
+
+def bell_library(Fs, F, dt, dev):
+    """The yardstick for K2: a ``torch.sparse`` product of the matrix ``Fs``
+    (scipy) that `BellOp` ``F`` holds, BSR of the same blocks if the card's
+    library takes it for ``dt``, else CSR.  Returns (name, fn(X))."""
+    n, N = F.n, F.nb * F.bs
+    Fp = sp.bsr_matrix(sp.block_diag([Fs, sp.csr_matrix((N - n, N - n))]).tocsr(),
+                       blocksize=(F.bs, F.bs))
+    bsr = torch.sparse_bsr_tensor(
+        torch.as_tensor(Fp.indptr, dtype=torch.int64), torch.as_tensor(Fp.indices, dtype=torch.int64),
+        torch.as_tensor(Fp.data), size=Fp.shape, dtype=dt, device=dev)
+    probe = torch.zeros((N, 7), dtype=dt, device=dev)
+    try:
+        bsr @ probe
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:  # refused for the dtype: CSR
+        log(f"[K2] torch.sparse BSR x dense refused for {dt}: {str(e).splitlines()[0]}")
+        csr = csr_on(Fs, dt, dev)
+        return "CSR", lambda X: csr @ X
+    return "BSR", lambda X: (bsr @ torch.nn.functional.pad(X, (0, 0, 0, N - n)))[:n]
+
+
+def phase_k2(E_b, E, A, dev):
+    """K2 against its plain version on the card at the Rail size, the
+    shifted operator Aᵀ − Eᵀ, f64 and f32, ``mm`` and ``tmm`` (on the
+    unit-stride view the step passes) at q = 7 (the SMW solve of A⁻¹U),
+    48 (r_res: the Krylov block) and 96 (the capacity of X).  Times the
+    kernel, the plain version and the ``torch.sparse`` yardstick.
+    Returns (max_abs_err, timings, library timings, f64 mm q=48 bound)."""
+    rng = np.random.default_rng(1)
+    max_abs = 0.0
+    timings, library = {}, {}
+    E64, A64 = E_b
+    F64 = shifted_bell(E64, A64, -1.0)
+    F_host = (A.T - E.T).tocsr()
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).removeprefix("torch.")
+        F = F64 if dt == torch.float64 else op_astype(F64, dt)
+        n = F.n
+        lib_name, lib = bell_library(F_host, F, dt, dev)
+        for q in (7, 48, 96):
+            def arr(*shape):
+                return torch.as_tensor(rng.standard_normal(shape), dtype=dt, device=dev)
+
+            X, Xv = arr(n, q), arr(q, n).T
+            cases = {
+                "mm": (lambda: F.mm(X), lambda: k2.bell_mm_plain(F.cols, F.data, X)),
+                "tmm": (lambda: F.tmm(Xv), lambda: k2.bell_mm_plain(F.cols_t, F.data_t, Xv)),
+            }
+            for op, (kern, plain) in cases.items():
+                abs_err, rel_err = check_close(f"K2 {op} {dname} q={q}", kern(), plain(), dname)
+                max_abs = max(max_abs, abs_err)
+                k_ms, k_host = time_ms(kern)
+                p_ms, _ = time_ms(plain)
+                timings[(op, dname, q)] = (k_ms, p_ms)
+                nbytes = (F.data.numel() * F.data.element_size() + F.cols.numel() * 4
+                          + 2 * n * q * X.element_size())
+                b_ms, b_by = bound_ms(nbytes, 2 * F.data.numel() * q, dt)
+                line = (f"[K2] {op:3s} {dname} q={q:3d}: rel err {rel_err:.2e} (abs {abs_err:.2e})"
+                        f" | K2 {k_ms * 1e3:9.2f} us ({nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s,"
+                        f" host {k_host * 1e3:.1f} us/call) | plain {p_ms * 1e3:9.2f} us"
+                        f" | bound {b_ms * 1e3:8.2f} us ({b_by})")
+                if op == "mm":
+                    check_close(f"torch.sparse {lib_name} {dname} q={q}", lib(X), plain(), dname)
+                    library[(op, dname, q)] = time_ms(lambda: lib(X))[0]
+                    line += f" | torch.sparse {lib_name} {library[(op, dname, q)] * 1e3:9.2f} us"
+                log(line)
+                if (op, dname, q) == ("mm", "float64", 48):
+                    bound = (b_ms, b_by)
+    return max_abs, timings, library, bound
 
 
 def phase_small_step():
@@ -240,6 +403,112 @@ def phase_full_step(E, A, B, C, dev):
     return launches
 
 
+def ros2_problem(E, A, B, C, E_b, dev, nsteps, capacity):
+    """The reference bench's north-star Ros2 problem on block-ELL operators
+    ``E_b``: ``X0 = lowrank(E⁻¹Cᵀ, 0.01·I)`` at ``capacity``, ``nsteps``
+    steps of τ = 10 from t = 4500, and 16 real Penzl shifts of the pencil
+    ``(E, γτA − E/2)``.  Returns (problem, shifts, shift seconds)."""
+    dt = torch.float64
+    t0 = time.perf_counter()
+    sv = heuristic_shifts_host(E, sp.csr_matrix(_ROS2_GAMMA * TAU * A - 0.5 * E), 16, 20, 20)
+    t_shifts = time.perf_counter() - t0
+    check(all(abs(v.imag) <= 1e-12 * abs(v) for v in sv), "Penzl shifts are not real")
+    shifts = np.asarray([v.real for v in sv])
+    L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
+    X0 = lr_with_capacity(lowrank(torch.as_tensor(L0, dtype=dt, device=dev),
+                                  0.01 * torch.eye(C.shape[0], dtype=dt, device=dev)),
+                          capacity)
+    prob = GDREProblem(E_b[0], E_b[1], torch.as_tensor(B, dtype=dt, device=dev),
+                       torch.as_tensor(C, dtype=dt, device=dev), X0,
+                       (4500.0, 4500.0 - nsteps * TAU))
+    return prob, shifts, t_shifts
+
+
+def phase_bell_small():
+    """The block-ELL Ros2 sweep at n=1357 (not a multiple of 128: the
+    identity-padded last block) on the card and on the CPU: equal ADI
+    iterations per step, K within 1e-9 at every stop."""
+    E, A, B, C = rail_surrogate(N_SMALL)
+    outs = []
+    for dev in (CARD, "cpu"):
+        E_b = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+        prob, shifts, _ = ros2_problem(E, A, B, C, E_b, dev, SMALL_STEPS, SMALL_CAPACITY)
+        steps = []
+        before = k2.launches
+        t0 = time.perf_counter()
+        sol = solve_gdre_ros2_compiled(
+            prob, dt=-TAU, shifts=shifts, cfg=SWEEP_CFG, capacity=SMALL_CAPACITY,
+            observer=lambda i, X, K, iters, res: steps.append(iters))
+        if dev == CARD:
+            torch.cuda.synchronize()
+            check(k2.launches > before, f"n={N_SMALL} sweep: K2 was not launched")
+        outs.append(([K.cpu() for K in sol.K], steps))
+        log(f"[n={N_SMALL}] {dev}: {SMALL_STEPS} Ros2 steps in {time.perf_counter() - t0:.3f} s, "
+            f"ADI iters per step {steps[1:]}, worst res {sol.adi_res_max:.6e}, "
+            f"rank {sol.X[-1].k}")
+    (Kg, ig), (Kc, ic) = outs
+    rel = [float(torch.linalg.norm(g - c) / torch.linalg.norm(c)) for g, c in zip(Kg, Kc)]
+    log(f"[n={N_SMALL}] card vs CPU: K rel at each stop {['%.3e' % r for r in rel]}")
+    check(ig == ic, f"n={N_SMALL}: ADI iterations differ (card {ig}, CPU {ic})")
+    check(max(rel) <= STEP_REL_TOL, f"n={N_SMALL}: card and CPU K differ beyond {STEP_REL_TOL}")
+
+
+def phase_bell_full(E, A, B, C, E_b, dev):
+    """The block-ELL path at full size: `solve_gdre_ros2_compiled` on the
+    n=79841 Rail surrogate in block-ELL, f64.  Returns the K2 launches of
+    the run."""
+    prob, shifts, t_shifts = ros2_problem(E, A, B, C, E_b, dev, FULL_STEPS, CAPACITY)
+    log(f"[n={N_FULL} bell] Penzl shifts in {t_shifts:.2f} s: "
+        + ", ".join(f"{v:.6e}" for v in shifts))
+    rows = []
+    mark = {}
+
+    def observer(i, X, K, iters, res):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rows.append((i, now - mark["t"], iters, None if res is None else float(res), X, K,
+                     k2.launches - mark["k2"], blocklinear.krylov_iterations - mark["kry"]))
+        mark.update(t=now, k2=k2.launches, kry=blocklinear.krylov_iterations)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = 0  # the block-ELL path's run starts here
+    blocklinear.krylov_iterations = 0
+    mark.update(t=time.perf_counter(), k2=0, kry=0)
+    t0 = mark["t"]
+    sol = solve_gdre_ros2_compiled(prob, dt=-TAU, shifts=shifts, cfg=SWEEP_CFG,
+                                   capacity=CAPACITY, save_state=True, observer=observer)
+    torch.cuda.synchronize()
+    launches, k1_launches = k2.launches, k1.launches  # the run ends here
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    log(f"[n={N_FULL} bell] sweep setup (shifted operators, block-Jacobi "
+        f"inverses) {rows[0][1]:.3f} s; abstol n·eps·‖C‖_F")
+    Eo, Ao = E_b
+    for i, step_wall, iters, res, X, K, nl, ns in rows[1:]:
+        R1 = lr_compress(_ros2_rhs1(Eo, Ao, prob.B, prob.C, sol.X[i - 1]), r_out=SWEEP_CFG.r_res)
+        start = float(_residual_norm(R1.L, R1.D))
+        finite = all(bool(torch.isfinite(t).all()) for t in (X.L, X.D, K))
+        log(f"[n={N_FULL} bell] step {i}: wall {step_wall:.3f} s, ADI iters {iters}, "
+            f"res {res:.6e} (stage-1 start {start:.6e}), rank {X.k}/{X.r}, "
+            f"K2 launches {nl}, Krylov iterations (host syncs) {ns}")
+        check(finite, f"bell step {i}: non-finite X or K")
+        check(res < start, f"bell step {i}: residual {res:.3e} not below its start {start:.3e}")
+        check(nl > 0, f"bell step {i}: K2 was not launched")
+    log(f"[n={N_FULL} bell] {FULL_STEPS} steps in {wall:.3f} s (setup included); peak device "
+        f"memory {peak:.2f} GiB; K2 launches in the run {launches}, K1 {k1_launches}")
+    return launches
+
+
+def kernel_line(name, launches, max_abs, timing, library, bound):
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs, "ms": timing[0],
+            "plain_ms": timing[1], "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -254,17 +523,25 @@ def main() -> int:
     try:
         phase_build()
         E, A, B, C = rail_surrogate(N_FULL)
-        max_abs, timings = phase_kernels(E, A, dev)
+        k1_err, k1_t, k1_lib, k1_bound = phase_kernels(E, A, dev)
+        t0 = time.perf_counter()
+        E_b = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
+        log(f"[n={N_FULL} bell] block-ELL pencil built on the host and uploaded in "
+            f"{time.perf_counter() - t0:.2f} s: data {tuple(E_b[0].data.shape)}, "
+            f"{E_b[0].data.numel() * 8 / 1e6:.1f} MB per array in f64")
+        k2_err, k2_t, k2_lib, k2_bound = phase_k2(E_b, E, A, dev)
         phase_small_step()
-        launches = phase_full_step(E, A, B, C, dev)
+        k1_launches = phase_full_step(E, A, B, C, dev)
+        phase_bell_small()
+        k2_launches = phase_bell_full(E, A, B, C, E_b, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    k_ms, p_ms = timings[("mmT", "float64", 48)]
-    log(json.dumps({"kernels": [{
-        "name": "dia_spmm", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": max_abs,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    key1, key2 = ("mmT", "float64", 48), ("mm", "float64", 48)
+    log(json.dumps({"kernels": [
+        kernel_line("dia_spmm", k1_launches, k1_err, k1_t[key1], k1_lib[key1], k1_bound),
+        kernel_line("bell_spmm", k2_launches, k2_err, k2_t[key2], k2_lib[key2], k2_bound)]}))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The reference library computes in Float64 and its test tolerances (1e-10
 relative residuals) require double precision, so f64 is the default dtype
 here too.  Unlike the JAX package there is no process-wide x64 switch:
-tensors carry their dtype, and the device follows the input tensors.
+tensors carry their dtype, and the device follows the input tensors.  The
+port runs on the card; the CPU is used only where a caller asks for it.
 
 Reduced-precision products are switched off at import.  On the TPU the
 matrix unit's default bf16 passes made CG on the finite-difference pencils
@@ -36,6 +37,10 @@ def eps(dtype: torch.dtype | None = None) -> float:
 
 
 def device() -> torch.device:
-    """The CUDA device if one is present, else the CPU (for library callers
-    that build their own inputs; the solvers follow their input tensors)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA device, for callers that build their own inputs (the
+    solvers follow their input tensors).  Raises where there is none: the
+    port never falls back to the CPU unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' explicitly to "
+                           "run on the CPU")
+    return torch.device("cuda")

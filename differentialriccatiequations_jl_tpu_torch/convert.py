@@ -12,9 +12,10 @@ import numpy as np
 import torch
 
 from .lowrank import LowRank
-from .models.compiled import DiaShiftOps
+from .models.compiled import DiaShiftOps, SparseShiftOps
 from .ops.blocklinear import Krylov
 from .ops.dia import DiaOp
+from .ops.sparse import BellOp
 
 
 def _t(a, device):
@@ -60,3 +61,23 @@ def dia_shift_ops_from_numpy(data, data_t, prec_inv, offsets, n, nnz, cfg,
         pair_index=(None if pair_index is None
                     else tuple(int(i) for i in np.asarray(pair_index))),
         pair_cfg=krylov_from(pair_cfg))
+
+
+def bell_op_from_numpy(cols, data, cols_t, data_t, diag, n, bs,
+                       device=None) -> BellOp:
+    """`BellOp` from its block-ELL storage (``cols`` as int32)."""
+    return BellOp(cols=_t(np.asarray(cols, np.int32), device), data=_t(data, device),
+                  cols_t=_t(np.asarray(cols_t, np.int32), device),
+                  data_t=_t(data_t, device), diag_=_t(diag, device),
+                  n=int(n), bs=int(bs))
+
+
+def sparse_shift_ops_from_numpy(cols, data, diag, prec_inv, n, bs, cfg,
+                                device=None) -> SparseShiftOps:
+    """`SparseShiftOps` from the leaves of the JAX package's
+    ``SparseShiftOps`` that the port stores (its ``cols_t``/``data_t`` are
+    left out, as `models.compiled.build_sparse_shift_ops` leaves them)."""
+    return SparseShiftOps(cols=_t(np.asarray(cols, np.int32), device),
+                          data=_t(data, device), diag_=_t(diag, device),
+                          prec_inv=_t(prec_inv, device), n=int(n), bs=int(bs),
+                          cfg=krylov_from(cfg))

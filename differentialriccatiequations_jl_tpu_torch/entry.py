@@ -26,7 +26,8 @@ def entry(device=None):
     (DIA-banded) Ros1 step — RHS assembly, the ADI loop with block-Jacobi
     preconditioned Krylov shifted solves over precomputed `DiaShiftOps`,
     the SMW feedback correction — with every tensor on ``device`` (default
-    `config.device()`).  The shift buffer is the pair encoding of `SHIFTS`."""
+    `config.device()`, the card: without one it raises; ``"cpu"`` runs on
+    the CPU).  The shift buffer is the pair encoding of `SHIFTS`."""
     dev = torch.device(device) if device is not None else config.device()
     dt = config.default_dtype()
     E, A, B, C = rail_surrogate(256)

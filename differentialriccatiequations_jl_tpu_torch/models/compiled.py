@@ -1,12 +1,15 @@
-"""The LRSIF Ros1 GDRE time step on a banded pencil: ADI with precomputed
-shifted DIA operators.
+"""The compiled LRSIF Rosenbrock GDRE steps and sweeps: ADI with
+precomputed shifted operators.
 
-Port of the slice of the JAX package's ``models/compiled.py`` that one
-Ros1 step runs (`ros1_step_compiled` → `adi_compiled` → block-Jacobi
-preconditioned Krylov solves over `DiaShiftOps` with an SMW feedback
-correction → `lr_compress`).  The JAX package compiles the step into one
-``jit`` with a ``lax.while_loop``; here PyTorch runs eagerly, so the loop
-and its branches are Python control flow:
+Port of the JAX package's ``models/compiled.py``: `ros1_step_compiled`,
+`ros2_step_compiled` and the sweeps `solve_gdre_ros1_compiled` /
+`solve_gdre_ros2_compiled` → `adi_compiled` → block-Jacobi preconditioned
+Krylov solves over precomputed shifted operators (`DiaShiftOps` for banded
+pencils, `SparseShiftOps` for block-ELL ones) with an SMW feedback
+correction → `lr_compress`.  The JAX package compiles a step into one
+``jit`` with a ``lax.while_loop`` (and a sweep into one ``lax.scan``); here
+PyTorch runs eagerly, so the loops and their branches are Python control
+flow:
 
 * the shift buffer is a host numpy array, so choosing between the real
   step and the pair (double) step costs no sync;
@@ -17,9 +20,9 @@ and its branches are Python control flow:
 
 Supported shift buffers: all-real 1-D ``(ns,)`` and the pair encoding
 ``(ns, 2)`` of ``(Re μ, |Im μ|)`` rows (`pair_encode_shifts`), whose
-conjugate-pair slots run the all-real stacked double step.  A 1-D complex
-buffer raises: in the JAX package it is a CPU-only route, and the pair
-encoding keeps kernel K1 real-only.
+conjugate-pair slots run the all-real stacked double step (banded pencils
+only).  A 1-D complex buffer raises: in the JAX package it is a CPU-only
+route, and the pair encoding keeps the kernels real-only.
 """
 
 from __future__ import annotations
@@ -30,13 +33,16 @@ import math
 import numpy as np
 import torch
 
-from ..lowrank import LowRank, _mask_cols, lr_add, lr_compress
+from ..lowrank import LowRank, _mask_cols, lr_add, lr_compress, lr_with_capacity
 from ..ops.blocklinear import (
     DenseLUSolver, Krylov, KrylovSolver, PairBlockPrec, PairSMWSolver,
     SMWSolver, block_jacobi_inverses)
 from ..ops.dia import DiaOp, DiaPairOp
-from ..ops.operators import LowRankUpdateOp, lin_comb, lr_update
+from ..ops.operators import DenseOp, LowRankUpdateOp, lin_comb, lr_update, scale_op
+from ..ops.sparse import BellOp
+from .problems import DRESolution
 from .residuals import residual_gale_lowrank
+from .rosenbrock_lowrank import _ros2_rhs1, _ros2_rhs2, feedback_K, time_grid
 
 
 #: Block size of the block-Jacobi preconditioner.
@@ -150,12 +156,13 @@ def _pair_block_inverses(blkA, blkE, ab):
 
 
 def build_dia_shift_ops(E: DiaOp, A0: DiaOp, shifts,
+                        krylov_cfg: Krylov | None = None,
                         block_cache: dict | None = None) -> DiaShiftOps:
     """Assemble the per-shift shifted DIA operators ``A₀ᵀ + μₛEᵀ`` and their
     block-Jacobi inverses (``PREC_BS``-wide blocks).  ``E``/``A0``:
     diagonal-set-sharing `DiaOp`s (see `ops.dia.dia_pencil`).  ``shifts``:
     host array, 1-D real or the ``(ns, 2)`` pair encoding; the shifts take
-    the operators' dtype.
+    the operators' dtype.  ``krylov_cfg`` defaults to `default_dia_krylov`.
 
     ``block_cache``: optional dict reused across calls with the same pencil;
     it caches the pencil members' diagonal blocks so a rebuild costs one
@@ -169,8 +176,9 @@ def build_dia_shift_ops(E: DiaOp, A0: DiaOp, shifts,
     # Any conjugate pair means a nonsymmetric pencil, and so does a
     # known-nonsymmetric operator: then every slot uses BiCGStab.  All-real
     # buffers on symmetric pencils keep CG.
-    nonsym = A0.symmetric is False or E.symmetric is False
-    krylov_cfg = default_dia_krylov(E.dtype, has_pairs or nonsym)
+    if krylov_cfg is None:
+        nonsym = A0.symmetric is False or E.symmetric is False
+        krylov_cfg = default_dia_krylov(E.dtype, has_pairs or nonsym)
 
     At, Et = A0.adjoint(), E.adjoint()
     dt, dev = At.dtype, At.device
@@ -204,6 +212,70 @@ def build_dia_shift_ops(E: DiaOp, A0: DiaOp, shifts,
     return DiaShiftOps(data=data, data_t=data_t, prec_inv=inv,
                        offsets=At.offsets, n=At.n, nnz_=At.nnz_,
                        cfg=krylov_cfg, **pair_kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseShiftOps:
+    """Precomputed shifted block-ELL operators ``A₀ᵀ + μₛEᵀ`` with
+    block-Jacobi preconditioner inverses, one slot per shift (real shifts
+    only: the symmetric Rail-class pencils, whose Penzl shifts are real).
+
+    Unlike the JAX package, the shifted operators' transposed structure
+    (``cols_t``, ``data_t``) is not stored: no Krylov product reads it, and
+    at n = 79841 with 16 shifts it would double the 9 GB of f64 blocks."""
+
+    cols: torch.Tensor  # (nb, K): block pattern of the shifted operators
+    data: torch.Tensor  # (ns, nb, K, bs, bs)
+    diag_: torch.Tensor  # (ns, n)
+    prec_inv: torch.Tensor  # (ns, nb, bs, bs) block-Jacobi inverses
+    n: int
+    bs: int
+    cfg: Krylov
+
+    def core_solver(self, idx: int) -> KrylovSolver:
+        op = BellOp(cols=self.cols, data=self.data[idx], cols_t=None,
+                    data_t=None, diag_=self.diag_[idx], n=self.n, bs=self.bs)
+        return KrylovSolver(op=op, prec=self.prec_inv[idx], cfg=self.cfg)
+
+
+def build_sparse_shift_ops(E: BellOp, A0: BellOp, shifts,
+                           krylov_cfg: Krylov | None = None) -> SparseShiftOps:
+    """Assemble the per-shift shifted block-ELL operators ``A₀ᵀ + μₛEᵀ`` and
+    their block-Jacobi inverses.  ``E``/``A0``: pattern-sharing `BellOp`s
+    (see `ops.sparse.bell_pencil`); ``shifts``: real host array, 1-D or the
+    pair encoding with every ``Im μ = 0``.  ``krylov_cfg`` defaults to CG on
+    the negated operator, ``tol = 10·eps``, ``maxiter = 400``.
+
+    The operators are built one shift at a time into preallocated tensors
+    (``μ·Eᵀ`` first, then ``+ A₀ᵀ``, the JAX package's rounding), so the
+    transient memory is one shift's diagonal blocks, not a batch."""
+    shifts = np.asarray(shifts)
+    if shifts.ndim == 2:
+        if np.any(shifts[:, 1] != 0):
+            raise ValueError("block-ELL shift operators take real shifts only")
+        shifts = shifts[:, 0]
+    if np.iscomplexobj(shifts):
+        raise ValueError("block-ELL shift operators take real shifts only")
+    if krylov_cfg is None:
+        eps = float(torch.finfo(E.dtype).eps)
+        krylov_cfg = Krylov(method="cg", tol=10 * eps, maxiter=400, negate=True)
+    At, Et = A0.adjoint(), E.adjoint()
+    ns = shifts.shape[0]
+    nb, K, bs, _ = At.data.shape
+    kw = dict(dtype=At.dtype, device=At.device)
+    data = torch.empty((ns, nb, K, bs, bs), **kw)
+    diag = torch.empty((ns, At.n), **kw)
+    inv = torch.empty((ns, nb, bs, bs), **kw)
+    for s, mu in enumerate(shifts.tolist()):
+        torch.mul(Et.data, mu, out=data[s])
+        data[s] += At.data
+        torch.mul(Et.diag_, mu, out=diag[s])
+        diag[s] += At.diag_
+        F = BellOp(cols=At.cols, data=data[s], cols_t=None, data_t=None,
+                   diag_=diag[s], n=At.n, bs=At.bs)
+        inv[s] = block_jacobi_inverses(F.diag_blocks())
+    return SparseShiftOps(cols=At.cols, data=data, diag_=diag, prec_inv=inv,
+                          n=At.n, bs=At.bs, cfg=krylov_cfg)
 
 
 def _small_dense_solver(S: torch.Tensor):
@@ -255,7 +327,7 @@ def _residual_norm(W: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 
 
 def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
-                 cfg: CompiledConfig, shift_lus: DiaShiftOps):
+                 cfg: CompiledConfig, shift_lus):
     """Low-rank ADI over a cyclic shift buffer.
 
     Args:
@@ -266,7 +338,8 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
       X0: warm-start iterate; ``W0 T0 W0ᵀ`` must be the GALE residual at it.
       shifts: host array, 1-D real or ``(ns, 2)`` pair-encoded.
       abstol: absolute residual tolerance.
-      shift_lus: `DiaShiftOps` built for ``shifts``.
+      shift_lus: `DiaShiftOps` or `SparseShiftOps` built for ``shifts``
+        (only `DiaShiftOps` has the pair tables a conjugate pair needs).
 
     Compression runs every ``cfg.compression_interval`` iterations and
     whenever the next increment would overflow the capacity ``X0.r``; a
@@ -323,7 +396,7 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
             mur, b = float(shifts[idx]), 0.0
         if b == 0.0:
             W, X, used = real_step(mur, idx, W, T0, X)
-        elif shift_lus.et_data is None:
+        elif getattr(shift_lus, "et_data", None) is None:
             raise ValueError("pair-encoded shift with Im(mu) != 0 but the "
                              "shift operators have no pair tables")
         else:
@@ -365,7 +438,7 @@ def ros1_initial_residual(E, A, B, C, X: LowRank, tau: float,
 
 def ros1_step_compiled(E, A, B, C, X: LowRank, tau: float, shifts,
                        abstol: float, cfg: CompiledConfig,
-                       shift_lus: DiaShiftOps):
+                       shift_lus):
     """One full LRSIF Ros1 (implicit Euler) GDRE time step, end to end:
     RHS assembly, the ADI loop, the feedback update.
     Returns (X_next, K_next, adi_iters, adi_residual_norm)."""
@@ -373,9 +446,7 @@ def ros1_step_compiled(E, A, B, C, X: LowRank, tau: float, shifts,
     W0 = _mask_cols(res0.L, res0.k)
     X_new, _, iters, res = adi_compiled(E, F_op, W0, res0.D, res0.k, X,
                                         shifts, abstol, cfg, shift_lus)
-    L2, D2 = X_new.L, X_new.D
-    K_new = ((B.T @ L2) @ D2) @ E.tmm(L2).T
-    return X_new, K_new, iters, res
+    return X_new, feedback_K(E, B, X_new), iters, res
 
 
 def _pair_units(arr):
@@ -407,3 +478,171 @@ def pair_encode_shifts(shifts, rdtype=None) -> np.ndarray:
         rdtype = shifts.real.dtype
     arr = shifts.astype(np.complex128).ravel()
     return np.asarray(_pair_units(arr)).astype(rdtype)
+
+
+def encode_shifts_for_operator(shifts, core) -> np.ndarray:
+    """The shift buffer as the sweep hands it to the shift builders.
+
+    In the JAX package this re-encodes complex buffers for the TPU; off the
+    TPU, and so always here, the buffer passes unchanged (a host numpy
+    array).  ``core`` is kept for the same signature.  A 1-D complex buffer
+    raises later, in the shift builders: pair-encode it."""
+    del core
+    return np.asarray(shifts)
+
+
+def check_shift_pairing(shifts) -> None:
+    """Validate that a cyclic 1-D complex shift buffer is unit-aligned:
+    walking it as a complex ADI does (real → +1, complex → +2 with the
+    conjugate adjacent) must land exactly on the buffer end.  Real and
+    pair-encoded (2-D) buffers cannot split a pair and always pass."""
+    arr = np.asarray(shifts)
+    if arr.ndim == 2 or not np.iscomplexobj(arr):
+        return
+    i = 0
+    while i < arr.size:
+        v = arr[i]
+        if v.imag == 0.0:
+            i += 1
+            continue
+        if i + 1 >= arr.size or not np.isclose(arr[i + 1], np.conj(v)):
+            raise ValueError(
+                f"shift buffer splits a conjugate pair at index {i}: "
+                f"{v} is not followed by its conjugate (pairs must be "
+                "adjacent and fully contained)")
+        i += 2
+
+
+def build_step_shift_solvers(E, F_base, shifts, krylov_cfg: Krylov | None = None,
+                             block_cache: dict | None = None):
+    """Route the shifted-core preparation by operator kind: banded →
+    `build_dia_shift_ops` (``block_cache`` is forwarded), block-ELL →
+    `build_sparse_shift_ops`.  A dense core is not ported yet."""
+    core = F_base.A if isinstance(F_base, LowRankUpdateOp) else F_base
+    sarr = np.asarray(shifts)
+    if sarr.ndim == 2 and np.any(sarr[:, 1] != 0) and not isinstance(core, DiaOp):
+        # Pair tables (the all-real stacked double step) exist only for
+        # banded cores.
+        raise ValueError(
+            "pair-encoded shift buffer with nonzero Im(mu) requires a banded "
+            f"(DiaOp) core, got {type(core).__name__}")
+    if isinstance(core, DiaOp):
+        return build_dia_shift_ops(E, core, shifts, krylov_cfg,
+                                   block_cache=block_cache)
+    if isinstance(core, BellOp):
+        return build_sparse_shift_ops(E, core, shifts, krylov_cfg)
+    if isinstance(core, DenseOp):
+        raise NotImplementedError("dense shifted cores are not ported yet")
+    raise TypeError(f"no shift solver for {type(core).__name__}")
+
+
+_ROS2_GAMMA = 1.0 + 1.0 / math.sqrt(2.0)
+
+
+def ros2_step_compiled(E, A, B, C, X: LowRank, tau: float, shifts,
+                       abstol: float, cfg: CompiledConfig, shift_lus):
+    """One full LRSIF Ros2 (2-stage Rosenbrock) GDRE time step: the stage-1
+    GALE with the indefinite 3×3 block right-hand side, the stage-2 GALE
+    built from the stage-1 solution, and the combination
+    ``X += (2 − 1/(2γ))τ·K₁ − (τ/2)·K₂``.  ``shift_lus`` must be built for
+    the pencil ``(E, γτA − E/2)``.  Returns (X_next, K_next, adi_iters of
+    both stages, the larger stage residual norm)."""
+    gamma = _ROS2_GAMMA
+    gt = gamma * tau
+    K = feedback_K(E, B, X)
+    # F = γτ·A − E/2 − γτ·B K: the core γτA − E/2 is what shift_lus
+    # holds, the feedback enters through the SMW correction.
+    F_core = lin_comb(scale_op(A, gt), -0.5, E)
+    F = LowRankUpdateOp(F_core, -1.0 / gt, B, K)
+    zero = LowRank(L=torch.zeros_like(X.L), D=torch.zeros_like(X.D), k=0)
+
+    R1 = lr_compress(_ros2_rhs1(E, A, B, C, X), r_out=cfg.r_res)
+    K1, _, it1, res1 = adi_compiled(E, F, _mask_cols(R1.L, R1.k), R1.D, R1.k,
+                                    zero, shifts, abstol, cfg, shift_lus)
+    R2 = lr_compress(_ros2_rhs2(E, B, K1, tau, gamma), r_out=cfg.r_res)
+    K2, _, it2, res2 = adi_compiled(E, F, _mask_cols(R2.L, R2.k), R2.D, R2.k,
+                                    zero, shifts, abstol, cfg, shift_lus)
+
+    # Fold both stages back into the state capacity.
+    X1 = lr_add(X, LowRank(L=K1.L, D=(2.0 - 1.0 / (2.0 * gamma)) * tau * K1.D,
+                           k=K1.k), r_out=2 * X.r)
+    X1 = lr_add(X1, LowRank(L=K2.L, D=(-tau / 2.0) * K2.D, k=K2.k), r_out=2 * X.r)
+    X_new = lr_compress(X1, r_out=X.r)
+    return X_new, feedback_K(E, B, X_new), it1 + it2, torch.maximum(res1, res2)
+
+
+def _abstol_default(prob) -> float:
+    """``n · eps · ‖C‖_F`` in the problem's dtype."""
+    return float(prob.n * torch.finfo(prob.B.dtype).eps
+                 * torch.linalg.norm(prob.C))
+
+
+def _sweep(step, prob, tstops, F_core, shifts, cfg, capacity, abstol,
+           save_state, krylov_cfg, observer):
+    """The fixed-step sweep shared by the Ros1 and Ros2 solvers."""
+    E, A, B, C = prob.E, prob.A, prob.B, prob.C
+    X = lr_with_capacity(lr_compress(prob.X0, r_out=prob.X0.r), capacity)
+    tau = float(tstops[0] - tstops[1])
+    shifts = encode_shifts_for_operator(shifts, F_core)
+    check_shift_pairing(shifts)
+    lus = build_step_shift_solvers(E, F_core, shifts, krylov_cfg)
+    if abstol is None:
+        abstol = _abstol_default(prob)
+    Xs, Ks = [X], [feedback_K(E, B, X)]
+    if observer is not None:
+        observer(0, X, Ks[0], 0, None)
+    iters_total, res_max = 0, 0.0
+    for i in range(1, len(tstops)):
+        X, K, iters, res = step(E, A, B, C, X, tau, shifts, abstol, cfg, lus)
+        iters_total += iters
+        res_max = max(res_max, float(res))
+        Ks.append(K)
+        if save_state:
+            Xs.append(X)
+        if observer is not None:
+            observer(i, X, K, iters, res)
+    if not save_state:
+        Xs.append(X)
+    sol = DRESolution(Xs, Ks, tstops)
+    sol.adi_iters = iters_total
+    sol.adi_res_max = res_max  # worst accepted GALE residual
+    return sol
+
+
+def solve_gdre_ros1_compiled(prob, *, dt: float, shifts, cfg: CompiledConfig,
+                             capacity: int = 128, abstol: float | None = None,
+                             save_state: bool = False,
+                             krylov_cfg: Krylov | None = None,
+                             fused: bool = False, observer=None) -> DRESolution:
+    """Full LRSIF Ros1 GDRE sweep with fixed steps ``dt``.  The shifted
+    cores ``(A − E/(2τ))ᵀ + μEᵀ`` are built once for the whole trajectory.
+
+    ``abstol`` defaults to ``n·eps·‖C‖_F``.  ``fused=True`` runs the same
+    per-step loop: PyTorch has no ``scan`` to fuse the sweep into.
+    ``observer(i, X, K, iters, res)``, if given, is called at every stop:
+    at ``i = 0`` once the shifted cores are built (``iters = 0``,
+    ``res = None``), then after step ``i``.
+    The solution carries ``adi_iters`` (total) and ``adi_res_max``."""
+    del fused
+    tstops = time_grid(prob.tspan, dt)
+    tau = float(tstops[0] - tstops[1])
+    F_base = lin_comb(prob.A, -1.0 / (2.0 * tau), prob.E)
+    return _sweep(ros1_step_compiled, prob, tstops, F_base, shifts, cfg,
+                  capacity, abstol, save_state, krylov_cfg, observer)
+
+
+def solve_gdre_ros2_compiled(prob, *, dt: float, shifts, cfg: CompiledConfig,
+                             capacity: int = 128, abstol: float | None = None,
+                             save_state: bool = False,
+                             krylov_cfg: Krylov | None = None,
+                             fused: bool = False, observer=None) -> DRESolution:
+    """Full LRSIF Ros2 GDRE sweep with fixed steps ``dt`` (the reference
+    bench's throughput configuration).  The shifted cores
+    ``(γτA − E/2)ᵀ + μEᵀ`` are built once for the whole trajectory.
+    Arguments and result as `solve_gdre_ros1_compiled`."""
+    del fused
+    tstops = time_grid(prob.tspan, dt)
+    tau = float(tstops[0] - tstops[1])
+    F_core = lin_comb(scale_op(prob.A, _ROS2_GAMMA * tau), -0.5, prob.E)
+    return _sweep(ros2_step_compiled, prob, tstops, F_core, shifts, cfg,
+                  capacity, abstol, save_state, krylov_cfg, observer)

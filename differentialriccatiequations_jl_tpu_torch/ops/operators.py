@@ -1,4 +1,5 @@
-"""Linear operators: dense and low-rank-updated.
+"""Linear operators: dense and low-rank-updated, and their algebra over the
+banded (`ops.dia`) and block-ELL (`ops.sparse`) kinds.
 
 Port of the JAX package's ``ops/operators.py``.  The contract every
 operator meets:
@@ -14,7 +15,8 @@ import dataclasses
 
 import torch
 
-from .dia import DiaOp, dia_lin_comb
+from .dia import DiaOp, dia_lin_comb, dia_scale
+from .sparse import BellOp, bell_lin_comb, bell_scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +44,7 @@ class LowRankUpdateOp:
     lazy so Sherman–Morrison–Woodbury solves reuse the base operator's
     solver where only the feedback term ``B K`` changes."""
 
-    A: object  # base operator (DenseOp / DiaOp)
+    A: object  # base operator (DenseOp / DiaOp / BellOp)
     alpha: float | torch.Tensor  # scalar
     U: torch.Tensor  # (n, m)
     V: torch.Tensor  # (m, n)
@@ -80,7 +82,8 @@ def as_operator(A):
 def lin_comb(A, c, E):
     """Operator for ``A + c·E`` (e.g. the Rosenbrock coefficient
     ``A − E/(2τ)``).  Low-rank updates distribute over the base; dense
-    bases combine eagerly; banded bases combine on their shared diagonals."""
+    bases combine eagerly; banded bases combine on their shared diagonals,
+    block-ELL bases on their shared block pattern."""
     A = as_operator(A)
     E = as_operator(E)
     if isinstance(A, LowRankUpdateOp):
@@ -89,8 +92,24 @@ def lin_comb(A, c, E):
         return DenseOp(A.M + c * E.M)
     if isinstance(A, DiaOp) and isinstance(E, DiaOp):
         return dia_lin_comb(A, c, E)
+    if isinstance(A, BellOp) and isinstance(E, BellOp):
+        return bell_lin_comb(A, c, E)
     raise TypeError(f"lin_comb of {type(A).__name__} and {type(E).__name__} "
                     "is not supported")
+
+
+def scale_op(A, c):
+    """Operator for ``c·A``."""
+    A = as_operator(A)
+    if isinstance(A, LowRankUpdateOp):
+        raise TypeError("scale the base and update separately")
+    if isinstance(A, DenseOp):
+        return DenseOp(c * A.M)
+    if isinstance(A, DiaOp):
+        return dia_scale(A, c)
+    if isinstance(A, BellOp):
+        return bell_scale(A, c)
+    raise TypeError(f"cannot scale operator {type(A).__name__}")
 
 
 def op_astype(op, dtype: torch.dtype):
@@ -104,4 +123,9 @@ def op_astype(op, dtype: torch.dtype):
     if isinstance(op, DiaOp):
         return dataclasses.replace(op, data=op.data.to(dtype),
                                    data_t=op.data_t.to(dtype))
+    if isinstance(op, BellOp):
+        return dataclasses.replace(
+            op, data=op.data.to(dtype),
+            data_t=None if op.data_t is None else op.data_t.to(dtype),
+            diag_=op.diag_.to(dtype))
     raise TypeError(f"cannot cast operator {type(op)}")

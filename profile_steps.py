@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Where the time of one step goes, on one GPU.
+
+    python3 profile_steps.py [OUT_DIR]
+
+Builds K1 and K2, then runs one step of each full-size path of
+`chip_smoke.py` (the n=79841 Rail surrogate, f64) three times from the same
+state: first (library set-up included), under `torch.profiler` (CPU and
+CUDA activities), and once more unprofiled.
+
+* ``dia``: the LRSIF Ros1 step on the DIA pencil with the pair-encoded
+  shift buffer (BiCGStab), as in `chip_smoke.py` phase 3;
+* ``bell``: the LRSIF Ros2 step on the block-ELL pencil with 16 real
+  Penzl shifts (CG), as in `chip_smoke.py` phase 5.
+
+Prints, per path, the step's wall clock with and without the profiler, the
+summed device time of all kernels and copies and its share of the profiled
+wall, the kernel launches and host syncs, and the largest device-time
+kernels; with ``OUT_DIR``, writes the full kernel tables to
+``OUT_DIR/profile_<path>.txt``.
+Exits non-zero without a CUDA device.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import scipy.sparse.linalg as spla
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from differentialriccatiequations_jl_tpu_torch.lowrank import lowrank, lr_compress, lr_with_capacity
+from differentialriccatiequations_jl_tpu_torch.models.compiled import (
+    _ROS2_GAMMA, _abstol_default, build_dia_shift_ops, build_step_shift_solvers,
+    pair_encode_shifts, ros1_step_compiled, ros2_step_compiled)
+from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
+from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb, scale_op
+from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil
+from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
+
+LAUNCH = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+SYNC = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def report(name: str, step, out: Path | None) -> None:
+    _, first = timed(step)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_prof = timed(step)
+    _, wall = timed(step)
+    by_kernel = defaultdict(lambda: [0.0, 0])
+    launches = syncs = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name][0] += e.time_range.elapsed_us()
+            by_kernel[e.name][1] += 1
+        elif e.name in LAUNCH:
+            launches += 1
+        elif e.name in SYNC:
+            syncs += 1
+    device_ms = sum(t for t, _ in by_kernel.values()) / 1e3
+    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    cs.log(f"[{name}] wall first {first:.3f} s, profiled {wall_prof:.3f} s, unprofiled {wall:.3f} s; "
+           f"device time {device_ms:.1f} ms ({100 * device_ms / 1e3 / wall_prof:.1f} % of the "
+           f"profiled wall); kernel launches {launches}; host syncs {syncs}")
+    lines = [f"{t / 1e3:10.3f} ms {100 * t / 1e3 / device_ms:5.1f} % {c:7d} calls  {k}"
+             for k, (t, c) in rows]
+    for line in lines[:12]:
+        cs.log(f"[{name}]   {line}")
+    if out is not None:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"profile_{name}.txt").write_text("\n".join(lines) + "\n")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_steps: no CUDA device", file=sys.stderr)
+        return 2
+    out = Path(sys.argv[1]) if len(sys.argv) > 1 else None
+    cs.log(f"[card] {cs.card_line()}")
+    cs.phase_build()
+    dev, dt, tau = torch.device("cuda"), torch.float64, cs.TAU
+    E, A, B, C = rail_surrogate(cs.N_FULL)
+    B_d = torch.as_tensor(B, dtype=dt, device=dev)
+    C_d = torch.as_tensor(C, dtype=dt, device=dev)
+
+    # The DIA Ros1 step (chip_smoke.py phase 3, first step).
+    E_op, A_op = dia_pencil(E, A, dtype=dt, device=dev)
+    pair = pair_encode_shifts(cs.SHIFTS)
+    ops = build_dia_shift_ops(E_op, lin_comb(A_op, -1.0 / (2.0 * tau), E_op), pair)
+    L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
+    X0 = lr_with_capacity(lowrank(torch.as_tensor(L0, dtype=dt, device=dev),
+                                  0.01 * torch.eye(C.shape[0], dtype=dt, device=dev)),
+                          cs.CAPACITY)
+    cfg1 = cs.CompiledConfig(maxiters=8, compression_interval=4, r_res=48)
+    report("dia", lambda: ros1_step_compiled(E_op, A_op, B_d, C_d, X0, tau, pair, 1e-8,
+                                             cfg1, ops), out)
+    del E_op, A_op, ops
+
+    # The block-ELL Ros2 step (chip_smoke.py phase 5, first step).
+    E_b = bell_pencil(E, A, bs=cs.BS, dtype=dt, device=dev)
+    prob, shifts, _ = cs.ros2_problem(E, A, B, C, E_b, dev, 1, cs.CAPACITY)
+    F_core = lin_comb(scale_op(E_b[1], _ROS2_GAMMA * tau), -0.5, E_b[0])
+    lus = build_step_shift_solvers(E_b[0], F_core, np.asarray(shifts))
+    del F_core
+    X = lr_with_capacity(lr_compress(prob.X0, r_out=prob.X0.r), cs.CAPACITY)
+    abstol = _abstol_default(prob)
+    report("bell", lambda: ros2_step_compiled(E_b[0], E_b[1], prob.B, prob.C, X, tau, shifts,
+                                              abstol, cs.SWEEP_CFG, lus), out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

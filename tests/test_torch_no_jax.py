@@ -1,5 +1,5 @@
-"""The port and `chip_smoke.py` import no JAX, and CPU tensors never reach
-kernel K1.
+"""The port, `chip_smoke.py` and `profile_steps.py` import no JAX, and CPU tensors never reach
+kernels K1 and K2.
 
 Runs in a subprocess with ``jax`` blocked in ``sys.modules`` (the test
 process itself has JAX loaded by the conftest).
@@ -19,20 +19,26 @@ import differentialriccatiequations_jl_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke  # noqa: F401  (its work runs only under __main__)
+import chip_smoke, profile_steps  # noqa: F401,E401  (their work runs only under __main__)
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                for m, v in sys.modules.items() if v is not None)
 assert "differentialriccatiequations_jl_tpu" not in sys.modules
 
 import torch
+from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
+from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil, shifted_bell
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
 E, A, _, _ = rail_surrogate(100)
 E_op, _ = dia_pencil(E, A)
 X = torch.ones((100, 3), dtype=torch.float64)
 E_op.mm(X); E_op.tmm(X); E_op.mmT(X.T); E_op.mmT_axpby(X.T, X.T, 2.0, 1.0)
 assert k1.launches == 0, k1.launches
+bE, bA = bell_pencil(E, A, bs=16)
+F = shifted_bell(bE, bA, -1.0)
+F.mm(X); F.tmm(X); F.mm(X[:, 0]); F.tmm(X.T.contiguous().T)
+assert k2.launches == 0, k2.launches
 assert not torch.backends.cuda.matmul.allow_tf32
 print("OK", len(names))
 """
@@ -43,12 +49,12 @@ def test_port_imports_no_jax_and_cpu_never_launches():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 14  # every module was imported
+    assert int(proc.stdout.split()[1]) >= 21  # every module was imported
 
 
 def test_no_jax_import_statements():
     files = sorted((ROOT / "differentialriccatiequations_jl_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_steps.py"]
     for path in files:
         for line in path.read_text().splitlines():
             words = line.strip().split()

@@ -10,7 +10,8 @@ both compilers started together, and then:
 1. holds each kernel against its plain PyTorch version on the card, at the
    n=79841 Rail surrogate and the widths the steps use, and times the
    kernel, the plain version and one ``torch.sparse`` call (the yardstick,
-   which the port never calls);
+   which the port never calls); K1 also on operands rotated through more
+   than the L2, so that its share of the bytes bound is a real one;
 2. checks one Ros1 step at n=256 on the card against the same step on the
    CPU;
 3. drives the DIA path at full size: LRSIF Ros1 GDRE steps on the n=79841
@@ -27,7 +28,9 @@ device or any phase fails.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -68,13 +71,17 @@ KERNELS = {
                   "differentialriccatiequations_jl_tpu/ops/sparse.py:163"),
 }
 # Kernel vs plain: K1 sums in the plain version's order, only FMA
-# contraction differs; K2 sums over slots then block columns in order, the
-# plain einsum in another order.  Either way a few ulps of the largest
-# output entry.
+# contraction differs.  K2 in f64 sums over slots, then over the inner
+# dimension in 16-wide DMMA steps whose inner order is the tensor core's; in
+# f32 over slots, then block columns, in order; the plain einsum in another
+# order.  Either way a few ulps of the largest output entry.
 REL_TOL = {"float64": 1e-12, "float32": 1e-5}
 # Steps and sweeps, card vs CPU: Krylov tolerance 10·eps amplified by the ADI.
 STEP_REL_TOL = 1e-9
 TIMED_CALLS = 50
+# Operand sets that K1's cold timing rotates through hold at least three
+# times the H100's 50 MB L2, so no call finds its operands there.
+L2_BYTES = 50e6
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet, at 700 W):
 # 3.35 TB/s of HBM; 67 TFLOP/s for f64 (tensor cores) and for f32.
 PEAK_BYTES_S = 3.35e12
@@ -135,6 +142,21 @@ def time_ms(fn):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends)), host_ms
 
 
+def time_cold_ms(make_call, set_bytes: float) -> float:
+    """Median device time of one call on operands that are not in the L2:
+    ``make_call(r)`` returns a call on the r-th of R operand sets, with R
+    sets of ``set_bytes`` holding at least 3 × the L2, used in turn."""
+    sets = max(2, -(-int(3 * L2_BYTES) // int(set_bytes)))
+    calls = itertools.cycle([make_call(r) for r in range(sets)])
+    return time_ms(lambda: next(calls)())[0]
+
+
+def share(bound: float, t: float) -> str:
+    """The bound's share of a measured time; none above 100 % (a time under
+    the bound can only come from a cache)."""
+    return f"{100 * bound / t:.1f} %" if bound <= t else "n/a (under the bound)"
+
+
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak rate.  (ms, bound_by)."""
@@ -154,9 +176,37 @@ def phase_build():
     log(f"[build] K1 and K2 built and loaded in {time.perf_counter() - t0:.2f} s: "
         + ", ".join(p.name for p in paths))
     for name in KERNELS:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name} ptxas: {line.strip()}")
+        for line in ptxas_report(build.build_log(name)):
+            log(f"[build] {name} ptxas: {line}")
+    for dt in (torch.float64, torch.float32):
+        for q in (7, 48, 96, 300):
+            p = k2.plan(dt, q)
+            log(f"[build] K2 {str(dt).removeprefix('torch.')} q={q}: {p['nt']} n8-tiles per "
+                f"128-column chunk, {p['stages']}-stage ring, {p['smem_bytes']} bytes of "
+                f"dynamic shared memory, 1 block of 256 threads per SM")
+
+
+def ptxas_report(text: str) -> list[str]:
+    """One line per compiled kernel variant from ``nvcc -Xptxas -v``:
+    its (demangled) name, registers, shared memory and spills."""
+    rows, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            rows.append((name, line.split(":", 1)[-1].strip() + "; " + spill))
+            name = None
+    names = [n for n, _ in rows]
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=30, check=True).stdout.splitlines()
+        names = out if len(out) == len(names) else names
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [f"{n.split('(')[0]}: {info}" for n, (_, info) in zip(names, rows)]
 
 
 def check_close(name, got, ref, dname):
@@ -181,11 +231,14 @@ def csr_on(M, dt, dev):
 def phase_kernels(E, A, dev):
     """K1 against its plain version on the card, every product the step
     uses, at the Rail size; times both, and at q = 48 one ``torch.sparse``
-    CSR product of the same matrix.  Returns (max_abs_err, timings,
-    library timings, the f64 mmT q=48 bound)."""
+    CSR product of the same matrix.  ``mmT`` and ``mm`` are timed twice:
+    back to back on the same operands (L2-warm at q <= 12, where the whole
+    working set fits the L2) and rotated through operand sets larger than
+    the L2 (cold), against the bound of the call.  Returns (max_abs_err,
+    warm timings, cold timings, library timings, the f64 mmT q=48 bound)."""
     rng = np.random.default_rng(0)
     max_abs = 0.0
-    timings, library = {}, {}
+    timings, cold, library = {}, {}, {}
     F_host = (A.T - E.T).tocsr()
     for dt in (torch.float64, torch.float32):
         dname = str(dt).removeprefix("torch.")
@@ -194,7 +247,7 @@ def phase_kernels(E, A, dev):
         F_csr = csr_on(F_host, dt, dev)
         nnz = F.nnz
         offs, offs_t = F.offsets, tuple(-o for o in F.offsets)
-        N = F.N
+        N, nd, esize = F.N, len(F.offsets), F.data.element_size()
         # The step hands K1 q = 7 (the SMW solve of A⁻¹U, m = 7 inputs),
         # 48 (r_res: the Krylov block) and 96 (the capacity of X); 32 is
         # the reference bench's width.
@@ -229,11 +282,28 @@ def phase_kernels(E, A, dev):
                 k_ms, k_host = time_ms(kern)
                 p_ms, p_host = time_ms(plain)
                 timings[(op, dname, q)] = (k_ms, p_ms)
-                log(f"[kernels] {op:9s} {dname} q={q:3d}: rel err {rel_err:.2e} "
-                    f"(abs {abs_err:.2e}) | K1 {k_ms * 1e3:8.2f} us "
-                    f"{nnz / (k_ms * 1e-3) / 1e9:7.2f} Gnnz/s (host {k_host * 1e3:6.1f} us/call)"
-                    f" | plain {p_ms * 1e3:8.2f} us {nnz / (p_ms * 1e-3) / 1e9:7.2f} Gnnz/s"
-                    f" (host {p_host * 1e3:6.1f} us/call)")
+                nbytes = esize * (nd * N + (3 if op == "mmT_axpby" else 2) * q * N)
+                b_ms, b_by = bound_ms(nbytes, 2 * nd * N * q, dt)
+                warm = "L2-warm" if nbytes <= L2_BYTES else f"{share(b_ms, k_ms)} of the bound"
+                line = (f"[kernels] {op:9s} {dname} q={q:3d}: rel err {rel_err:.2e} "
+                        f"(abs {abs_err:.2e}) | K1 {k_ms * 1e3:8.2f} us ({warm}, "
+                        f"{nnz / (k_ms * 1e-3) / 1e9:7.2f} Gnnz/s, host {k_host * 1e3:6.1f} us/call)"
+                        f" | plain {p_ms * 1e3:8.2f} us (host {p_host * 1e3:6.1f} us/call)"
+                        f" | bound {b_ms * 1e3:7.2f} us ({b_by})")
+                if op in ("mmT", "mm"):
+                    # Cold: the same call on one of several copies of the
+                    # weights and the operand, in turn.
+                    src = Xt if op == "mmT" else X
+                    fn = k1.dia_mm_t if op == "mmT" else k1.dia_mm
+
+                    def make_call(r, src=src, fn=fn):
+                        d_r, x_r = (F.data, src) if r == 0 else (F.data.clone(), src.clone())
+                        return lambda: fn(d_r, offs, x_r)
+
+                    c_ms = time_cold_ms(make_call, nbytes)
+                    cold[(op, dname, q)] = c_ms
+                    line += f" | cold {c_ms * 1e3:8.2f} us ({share(b_ms, c_ms)} of the bound)"
+                log(line)
                 if q == 48 and op in ("mm", "mmT"):
                     lib = (lambda: F_csr @ X) if op == "mm" else (lambda: F_csr @ Xt.T)
                     ref = plain() if op == "mm" else plain().T
@@ -245,7 +315,7 @@ def phase_kernels(E, A, dev):
     N, q, nd = F.N, 48, len(F.offsets)
     bound = bound_ms(8 * (nd * N + 2 * q * N), 2 * nd * N * q, torch.float64)
     log(f"[kernels] K1 bound, f64 mmT q=48: {bound[0] * 1e3:.2f} us ({bound[1]})")
-    return max_abs, timings, library, bound
+    return max_abs, timings, cold, library, bound
 
 
 def bell_library(Fs, F, dt, dev):
@@ -308,7 +378,7 @@ def phase_k2(E_b, E, A, dev):
                 line = (f"[K2] {op:3s} {dname} q={q:3d}: rel err {rel_err:.2e} (abs {abs_err:.2e})"
                         f" | K2 {k_ms * 1e3:9.2f} us ({nbytes / (k_ms * 1e-3) / 1e12:.2f} TB/s,"
                         f" host {k_host * 1e3:.1f} us/call) | plain {p_ms * 1e3:9.2f} us"
-                        f" | bound {b_ms * 1e3:8.2f} us ({b_by})")
+                        f" | bound {b_ms * 1e3:8.2f} us ({b_by}, {share(b_ms, k_ms)})")
                 if op == "mm":
                     check_close(f"torch.sparse {lib_name} {dname} q={q}", lib(X), plain(), dname)
                     library[(op, dname, q)] = time_ms(lambda: lib(X))[0]
@@ -523,7 +593,7 @@ def main() -> int:
     try:
         phase_build()
         E, A, B, C = rail_surrogate(N_FULL)
-        k1_err, k1_t, k1_lib, k1_bound = phase_kernels(E, A, dev)
+        k1_err, k1_t, k1_cold, k1_lib, k1_bound = phase_kernels(E, A, dev)
         t0 = time.perf_counter()
         E_b = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
         torch.cuda.synchronize()
@@ -539,8 +609,11 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     key1, key2 = ("mmT", "float64", 48), ("mm", "float64", 48)
+    # K1's time is the cold one: its operands are not in the L2, as its
+    # bound assumes.
     log(json.dumps({"kernels": [
-        kernel_line("dia_spmm", k1_launches, k1_err, k1_t[key1], k1_lib[key1], k1_bound),
+        kernel_line("dia_spmm", k1_launches, k1_err, (k1_cold[key1], k1_t[key1][1]),
+                    k1_lib[key1], k1_bound),
         kernel_line("bell_spmm", k2_launches, k2_err, k2_t[key2], k2_lib[key2], k2_bound)]}))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     log(card)

@@ -18,12 +18,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, empty_in_layout
 
 #: Number of K2 launches in this process (the plain version never counts).
 launches = 0
-
-MAX_Q = 256  # BELL_MAX_CHUNKS * BELL_CHUNK in csrc/bell_spmm.cu
 
 _NAME = "bell_spmm"
 _ARGTYPES = [
@@ -67,11 +65,9 @@ def bell_mm(cols: torch.Tensor, data: torch.Tensor, X: torch.Tensor) -> torch.Te
     return _launch(cols, data, X)
 
 
-def _launch(cols, data, X):
-    """Check the operands and launch K2 (in ``MAX_Q``-column pieces)."""
-    global launches
-    if X.device.type != "cuda":
-        raise ValueError(f"bell_spmm: no kernel for device {X.device}")
+def _output(cols, data, X):
+    """Check the operands for K2 and allocate its result in the operand's
+    layout (`empty_in_layout`)."""
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"bell_spmm: kernel takes float32/float64, got {X.dtype}")
     if data.dtype != X.dtype or data.device != X.device:
@@ -86,25 +82,44 @@ def _launch(cols, data, X):
                          f"int32 tensor on {X.device}")
     if X.dim() != 2:
         raise ValueError("bell_spmm: the operand must be 2-D")
-    n, q = X.shape
+    n = X.shape[0]
     if not (nb - 1) * bs < n <= nb * bs:
         raise ValueError(f"bell_spmm: operand has {n} rows, the operator "
                          f"{nb} blocks of {bs}")
-    # Y in the operand's layout, so a transposed view gets unit-stride writes.
-    if X.stride(0) == 1 and q > 1:
-        Y = torch.empty((q, n), dtype=X.dtype, device=X.device).T
-    else:
-        Y = torch.empty((n, q), dtype=X.dtype, device=X.device)
+    return empty_in_layout(X)
+
+
+def _launch(cols, data, X):
+    """Check the operands and launch K2 (one launch for any width)."""
+    global launches
+    if X.device.type != "cuda":
+        raise ValueError(f"bell_spmm: no kernel for device {X.device}")
+    Y = _output(cols, data, X)
+    nb, K, bs, _ = data.shape
+    n, q = X.shape
+    if q == 0:
+        return Y
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = _kernel(X.dtype)
-        for c0 in range(0, q, MAX_Q):
-            Xc, Yc = X[:, c0:c0 + MAX_Q], Y[:, c0:c0 + MAX_Q]
-            err = fn(cols.data_ptr(), data.data_ptr(), nb, K, bs,
-                     Xc.data_ptr(), Xc.stride(0), Xc.stride(1),
-                     Yc.data_ptr(), Yc.stride(0), Yc.stride(1),
-                     n, Xc.shape[1], stream)
-            if err != 0:
-                raise RuntimeError(f"bell_spmm: kernel launch failed with CUDA error {err}")
-            launches += 1
+        err = _kernel(X.dtype)(cols.data_ptr(), data.data_ptr(), nb, K, bs,
+                               X.data_ptr(), X.stride(0), X.stride(1),
+                               Y.data_ptr(), Y.stride(0), Y.stride(1),
+                               n, q, stream)
+    if err != 0:
+        raise RuntimeError(f"bell_spmm: kernel launch failed with CUDA error {err}")
+    launches += 1
     return Y
+
+
+def plan(dtype: torch.dtype, q: int) -> dict:
+    """The kernel variant a call with ``q`` columns takes (for reports):
+    n8-tiles per 128-column chunk, stages of the shared-memory ring and its
+    dynamic shared memory in bytes.  Builds the library."""
+    lib = build.load(_NAME)
+    fn = lib.bell_spmm_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    nt, stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if fn(int(dtype == torch.float64), q, nt, stages, smem) != 0:
+        raise ValueError(f"bell_spmm: no variant for q={q}")
+    return {"nt": nt.value, "stages": stages.value, "smem_bytes": smem.value}

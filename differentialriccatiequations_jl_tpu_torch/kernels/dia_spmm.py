@@ -8,7 +8,8 @@ kernel ``ops/dia.py::_dia_mm_pallas_t``.
 The wrappers `dia_mm` (column-major ``(N, q)``) and `dia_mm_t` (lane-major
 ``(q, N)``, with the optional ``α·Y + β·Z`` epilogue) take the plain version
 for tensors on the CPU and launch the kernel for tensors on a CUDA device;
-any other device raises.  `launches` counts kernel launches.
+any other device raises.  The result has the operand's layout
+(`kernels.empty_in_layout`).  `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, empty_in_layout
 
 #: Number of K1 launches in this process (the plain version never counts).
 launches = 0
@@ -97,11 +98,9 @@ def dia_mm_t(data: torch.Tensor, offsets: tuple, Xt: torch.Tensor,
     return _launch(data, offsets, Xt, axis=1, Z=Z, alpha=alpha, beta=beta)
 
 
-def _launch(data, offsets, X, axis, Z=None, alpha=1.0, beta=0.0):
-    """Check the operands and launch K1; ``axis`` is X's problem axis."""
-    global launches
-    if X.device.type != "cuda":
-        raise ValueError(f"dia_spmm: no kernel for device {X.device}")
+def _output(data, offsets, X, axis, Z=None):
+    """Check the operands for K1 and allocate its result in the operand's
+    layout (`empty_in_layout`); ``axis`` is X's problem axis."""
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_spmm: kernel takes float32/float64, got {X.dtype}")
     if data.dtype != X.dtype or data.device != X.device:
@@ -121,7 +120,16 @@ def _launch(data, offsets, X, axis, Z=None, alpha=1.0, beta=0.0):
                           or Z.device != X.device):
         raise ValueError("dia_spmm: Z must match the operand's shape, dtype "
                          "and device")
-    Y = torch.empty(X.shape, dtype=X.dtype, device=X.device)
+    return empty_in_layout(X)
+
+
+def _launch(data, offsets, X, axis, Z=None, alpha=1.0, beta=0.0):
+    """Check the operands and launch K1; ``axis`` is X's problem axis."""
+    global launches
+    if X.device.type != "cuda":
+        raise ValueError(f"dia_spmm: no kernel for device {X.device}")
+    Y = _output(data, offsets, X, axis, Z)
+    ndiag, N = data.shape
     q = X.shape[1 - axis]
     if q == 0:
         return Y

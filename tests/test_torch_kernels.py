@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from differentialriccatiequations_jl_tpu_torch import config
+from differentialriccatiequations_jl_tpu_torch import config, kernels
 from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
 from differentialriccatiequations_jl_tpu_torch.ops import dia as tdia
@@ -66,6 +66,56 @@ def test_entry_without_a_device_raises(monkeypatch):
     assert args[0].device.type == "cpu"
 
 
+# Operand layouts and the strides the result must have: (N, q) row-major,
+# the (N, q) view of (q, N) storage that the ADI hands `tmm`, and the
+# lane-major (q, N) Krylov state (K1's `dia_mm_t` only).
+LAYOUTS = {
+    "(N, q)": (lambda N, q: torch.zeros((N, q), dtype=torch.float64), lambda N, q: (q, 1)),
+    "(N, q) view of (q, N)": (lambda N, q: torch.zeros((q, N), dtype=torch.float64).T,
+                              lambda N, q: (1, N)),
+    "(q, N)": (lambda N, q: torch.zeros((q, N), dtype=torch.float64), lambda N, q: (N, 1)),
+}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k1_output_follows_operand_layout(layout):
+    """K1's wrapper allocates Y in the operand's layout, so the kernel
+    writes along the axis it reads along (CPU tensors: checks and
+    allocation only, no launch)."""
+    make, strides = LAYOUTS[layout]
+    N, q = 37, 5
+    data = torch.zeros((3, N), dtype=torch.float64)
+    X = make(N, q)
+    axis = 1 if layout == "(q, N)" else 0
+    Y = k1._output(data, (-1, 0, 1), X, axis)
+    assert Y.shape == X.shape and Y.stride() == strides(N, q)
+
+
+@pytest.mark.parametrize("layout", ["(N, q)", "(N, q) view of (q, N)"])
+def test_k2_output_follows_operand_layout(layout):
+    """K2's wrapper allocates Y in the operand's layout, through the same
+    helper as K1's; a single column stays contiguous."""
+    make, strides = LAYOUTS[layout]
+    n, q, bs = 37, 5, 16
+    cols = torch.zeros((3, 2), dtype=torch.int32)
+    data = torch.zeros((3, 2, bs, bs), dtype=torch.float64)
+    Y = k2._output(cols, data, make(n, q))
+    assert Y.shape == (n, q) and Y.stride() == strides(n, q)
+    assert kernels.empty_in_layout(make(n, 1)).stride() == (1, 1)
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+# The card tests below cover the cases the kernels' tiling creates: n = 1357
+# (n % 128 = 77: a masked last block row, rows of X beyond n), widths from
+# one column to more than one 128-column chunk of K2, a column slice
+# X[:, a:b] (neither axis contiguous), the (N, q) view of (q, N) storage,
+# and K1 with more than 16 diagonals (more than one chunk of diagonals).
+CARD_QS = (1, 7, 9, 48, 96, 300)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 def test_k1_matches_plain_on_card(dtype, tol):
@@ -88,17 +138,78 @@ def test_k1_matches_plain_on_card(dtype, tol):
     ]
     assert k1.launches == before + 4
     for got, ref in pairs:
-        assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+        assert _rel(got, ref) <= tol
     with pytest.raises(TypeError):
         F.mmT(Xt.to(torch.complex128))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q", CARD_QS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_k1_layouts_on_card(dtype, tol, q):
+    """K1 at n = 1357 in every layout the two kernels of K1 take: (q, N)
+    with and without the epilogue, row-major (N, q), the (N, q) view of
+    (q, N) storage, and column slices of both; the result keeps the
+    operand's layout."""
+    dev = _cuda()
+    E, A, _, _ = rail_surrogate(1357)
+    tE, tA = tdia.dia_pencil(E, A, dtype=dtype, device=dev)
+    F = tdia.shifted_dia(tE, tA, -1.0)
+    N, offs = F.N, F.offsets
+    rng = np.random.default_rng(q)
+
+    def arr(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+
+    Xt, Z, X, W = arr(q, N), arr(q, N), arr(N, q), arr(N, q + 5)
+    cases = [
+        (lambda: k1.dia_mm_t(F.data, offs, Xt), lambda: k1.dia_mm_t_plain(F.data, offs, Xt)),
+        (lambda: k1.dia_mm_t(F.data, offs, Xt, Z=Z, alpha=0.37, beta=-1.21),
+         lambda: 0.37 * k1.dia_mm_t_plain(F.data, offs, Xt) - 1.21 * Z),
+        (lambda: k1.dia_mm(F.data, offs, X), lambda: k1.dia_mm_plain(F.data, offs, X)),
+        (lambda: k1.dia_mm(F.data, offs, Xt.T), lambda: k1.dia_mm_plain(F.data, offs, Xt.T)),
+        (lambda: k1.dia_mm(F.data, offs, W[:, 2:q + 2]),
+         lambda: k1.dia_mm_plain(F.data, offs, W[:, 2:q + 2])),
+        (lambda: k1.dia_mm_t(F.data, offs, W.T[2:q + 2]),
+         lambda: k1.dia_mm_t_plain(F.data, offs, W.T[2:q + 2])),
+    ]
+    for kern, plain in cases:
+        before = k1.launches
+        got = kern()
+        assert k1.launches == before + 1
+        assert _rel(got, plain()) <= tol
+    assert k1.dia_mm(F.data, offs, Xt.T).stride(0) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_k1_many_diagonals_on_card(dtype, tol):
+    """21 diagonals: three chunks of K1's diagonal loop, sums in order."""
+    import scipy.sparse as sp
+
+    dev = _cuda()
+    n = 1357
+    rng = np.random.default_rng(21)
+    offsets = sorted(rng.choice(np.arange(-400, 401), size=21, replace=False).tolist())
+    M = sp.diags([rng.standard_normal(n - abs(o)) for o in offsets], offsets, shape=(n, n))
+    op = tdia.dia_from_scipy(M, dtype=dtype, device=dev)
+    assert len(op.offsets) == 21
+    for q in (7, 48):
+        Xt = torch.as_tensor(rng.standard_normal((q, op.N)), dtype=dtype, device=dev)
+        assert _rel(op.mmT(Xt), k1.dia_mm_t_plain(op.data, op.offsets, Xt)) <= tol
+        assert _rel(op.mm(Xt.T.contiguous()), k1.dia_mm_plain(op.data, op.offsets, Xt.T)) <= tol
+    ref = torch.as_tensor(M.toarray(), dtype=dtype, device=dev) @ Xt.T
+    assert _rel(op.mm(Xt.T), ref) <= 100 * tol
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 def test_k2_matches_plain_on_card(dtype, tol):
-    """K2 sums over slots then block columns in order; the plain einsum in
-    another order: a few ulps of the largest entry.  q = 7, 48, 96 are the
-    step's widths, 300 takes two launches; `tmm` on a transposed view."""
+    """K2 in f64 sums over slots, then over the inner dimension in 16-wide
+    DMMA steps whose inner order is the tensor core's; in f32 over slots
+    then b in order; the plain einsum in another order: a few ulps of the
+    largest entry.  q = 7, 48, 96 are the step's widths, 300 takes three
+    128-column chunks of one launch; `tmm` on a transposed view."""
     dev = _cuda()
     E, A, _, _ = rail_surrogate(5177)
     tE, tA = tsparse.bell_pencil(E, A, dtype=dtype, device=dev)
@@ -109,12 +220,52 @@ def test_k2_matches_plain_on_card(dtype, tol):
         Xv = X.T.contiguous().T
         before = k2.launches
         got = [F.mm(X), F.tmm(Xv)]
-        assert k2.launches == before + 2 * (1 + (q > k2.MAX_Q))
+        assert k2.launches == before + 2
         refs = [k2.bell_mm_plain(F.cols, F.data, X), k2.bell_mm_plain(F.cols_t, F.data_t, Xv)]
         for y, ref in zip(got, refs):
-            assert float((y - ref).abs().max() / ref.abs().max()) <= tol
+            assert _rel(y, ref) <= tol
     with pytest.raises(TypeError):
         F.mm(X.to(torch.complex128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", CARD_QS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_k2_layouts_on_card(dtype, tol, q):
+    """K2 at n = 1357 (the last block row holds 77 rows): row-major X, the
+    (n, q) view of (q, n) storage, and a column slice X[:, a:b]; the result
+    keeps the operand's layout."""
+    dev = _cuda()
+    E, A, _, _ = rail_surrogate(1357)
+    tE, tA = tsparse.bell_pencil(E, A, dtype=dtype, device=dev)
+    F = tsparse.shifted_bell(tE, tA, -1.0)
+    n = F.n
+    rng = np.random.default_rng(q)
+    W = torch.as_tensor(rng.standard_normal((n, q + 5)), dtype=dtype, device=dev)
+    for X in (W[:, :q].contiguous(), W[:, :q].T.contiguous().T, W[:, 3:q + 3]):
+        before = k2.launches
+        got = k2.bell_mm(F.cols, F.data, X)
+        assert k2.launches == before + 1
+        assert got.stride(0) == (1 if X.stride(0) == 1 and q > 1 else q)
+        assert _rel(got, k2.bell_mm_plain(F.cols, F.data, X)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [9, 20, 200])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_k2_block_sizes_on_card(dtype, tol, bs):
+    """Block sizes other than 128: 9 (no 16-byte copies, masked slices),
+    20 (rows beyond bs in a 128-row tile) and 200 (two row tiles per block
+    row, a ragged last slice)."""
+    dev = _cuda()
+    E, A, _, _ = rail_surrogate(1357)
+    tE, tA = tsparse.bell_pencil(E, A, bs=bs, dtype=dtype, device=dev)
+    F = tsparse.shifted_bell(tE, tA, -1.0)
+    rng = np.random.default_rng(bs)
+    for q in (7, 48):
+        X = torch.as_tensor(rng.standard_normal((F.n, q)), dtype=dtype, device=dev)
+        assert _rel(F.mm(X), k2.bell_mm_plain(F.cols, F.data, X)) <= tol
+        assert _rel(F.tmm(X.T.contiguous().T), k2.bell_mm_plain(F.cols_t, F.data_t, X)) <= tol
 
 
 @pytest.mark.cuda

@@ -20,7 +20,17 @@ both compilers started together, and then:
 4. checks the block-ELL Ros2 sweep at n=1357 on the card against the CPU;
 5. drives the block-ELL path at full size: `solve_gdre_ros2_compiled` on
    the n=79841 Rail surrogate (bs=128, f64, 16 Penzl shifts), counting K2
-   launches.
+   launches;
+6. checks the compiled Kleinman–Newton GARE solver at n=1357 on the card
+   against the CPU (the north-star configuration cut to 20 Newton steps);
+7. drives the Newton path at full size: `solve_gare_newton_compiled` on the
+   n=79841 Rail surrogate's DIA pencil (the reference bench's north-star
+   GARE configuration, f64, reltol 1e-10) to its end, counting K1 launches,
+   and holds its last residual against an independent evaluation.
+
+    python3 chip_smoke.py --newton-only [--newton-capacity 192]
+
+builds the kernels and runs phase 7 alone (at another capacity of ``X``).
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -28,6 +38,8 @@ device or any phase fails.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
+import collections
 import itertools
 import json
 import re
@@ -35,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -46,18 +59,22 @@ from differentialriccatiequations_jl_tpu_torch.entry import SHIFTS, entry
 from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
 from differentialriccatiequations_jl_tpu_torch.kernels import build
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
-from differentialriccatiequations_jl_tpu_torch.lowrank import lowrank, lr_compress, lr_with_capacity
+from differentialriccatiequations_jl_tpu_torch.lowrank import (
+    LowRank, lowrank, lr_add, lr_compress, lr_norm, lr_scale, lr_with_capacity)
+from differentialriccatiequations_jl_tpu_torch.models import compiled
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
-    _ROS2_GAMMA, CompiledConfig, _residual_norm, build_dia_shift_ops,
+    _ROS2_GAMMA, CompiledConfig, PerStepHeuristic, _residual_norm, build_dia_shift_ops,
     pair_encode_shifts, ros1_initial_residual, ros1_step_compiled,
-    solve_gdre_ros2_compiled)
-from differentialriccatiequations_jl_tpu_torch.models.problems import GDREProblem
-from differentialriccatiequations_jl_tpu_torch.models.rosenbrock_lowrank import _ros2_rhs1
+    solve_gare_newton_compiled, solve_gdre_ros2_compiled)
+from differentialriccatiequations_jl_tpu_torch.models.problems import GAREProblem, GDREProblem
+from differentialriccatiequations_jl_tpu_torch.models.residuals import residual_gare_lowrank
+from differentialriccatiequations_jl_tpu_torch.models.rosenbrock_lowrank import _ros2_rhs1, feedback_K
 from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_shifts_host
 from differentialriccatiequations_jl_tpu_torch.ops import blocklinear
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil, shifted_dia
 from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb, op_astype
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil, shifted_bell
+from differentialriccatiequations_jl_tpu_torch.utils.callbacks import Observer
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
 
 CARD = "cuda"
@@ -98,6 +115,22 @@ CAPACITY = 96
 # columns (the JAX package does the same); how many depends on ranks that
 # rounding decides, so the two devices drift apart by 1e-6.
 SMALL_CAPACITY = 160
+# The Newton phases: the reference bench's north-star GARE configuration
+# (G = lowrank(1000·B), Q = lowrank(Cᵀ), closed-loop Penzl shifts
+# PerStepHeuristic(20, 30, 30), the ADI configuration of the sweep above,
+# capacity 96, 60 Newton steps, reltol 1e-10).  The n=1357 card-vs-CPU
+# check cuts the depth to 20 Newton steps: it needs equal trajectories, not
+# convergence.
+NEWTON_SHIFTS = PerStepHeuristic(20, 30, 30)
+NEWTON_RELTOL = 1e-10
+NEWTON_MAXITERS = 60
+SMALL_NEWTON_MAXITERS = 20
+# Card vs CPU, Newton: residuals and θs within 1e-8 relative (or within
+# the residual's rounding floor n·eps·‖Q‖), X and K within 1e-8.
+NEWTON_REL_TOL = 1e-8
+# The solver's last residual against an independent evaluation: 1e-6
+# relative, or the rounding floor n·eps (relative to ‖Q‖).
+RESIDUAL_AGREE_TOL = 1e-6
 
 
 class PhaseError(RuntimeError):
@@ -571,15 +604,174 @@ def phase_bell_full(E, A, B, C, E_b, dev):
     return launches
 
 
+def newton_problem(E, A, B, C, dev) -> GAREProblem:
+    """The north-star GARE on the DIA pencil of (E, A): ``G = lowrank(1000·B)``,
+    ``Q = lowrank(Cᵀ)``, f64 on ``dev``."""
+    dt = torch.float64
+    E_op, A_op = dia_pencil(E, A, dtype=dt, device=dev)
+    return GAREProblem(E_op, A_op, lowrank(torch.as_tensor(1000.0 * B, dtype=dt, device=dev)),
+                       lowrank(torch.as_tensor(C.T.copy(), dtype=dt, device=dev)))
+
+
+def run_newton(prob, capacity, maxiters, observer=None):
+    """`solve_gare_newton_compiled` in the north-star configuration.
+    Returns (X, info, the solver's warnings counted by their text)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        X, info = solve_gare_newton_compiled(
+            prob, shifts=NEWTON_SHIFTS, cfg=SWEEP_CFG, capacity=capacity,
+            maxiters=maxiters, reltol=NEWTON_RELTOL, observer=observer)
+    return X, info, collections.Counter(str(w.message) for w in caught)
+
+
+def lr_rel_diff(Xa: LowRank, Xb: LowRank) -> float:
+    """``‖Xa − Xb‖_F / ‖Xb‖_F`` without an n×n matrix: the difference is
+    compressed first (QR of ``[La Lb]``), so the two terms cancel in a small
+    matrix and not in the Gram trace, whose rounding floor is √eps."""
+    d = lr_compress(lr_add(Xa, lr_scale(-1.0, Xb), r_out=Xa.r + Xb.r))
+    return float(torch.linalg.norm(d.D) / lr_norm(Xb))
+
+
+def phase_newton_small():
+    """The Newton solve at n=1357 on the card (kernel path) and on the CPU
+    (plain path), 20 Newton steps: equal steps, θs, rebuilds and ADI
+    iterations; residuals, X and K within `NEWTON_REL_TOL`."""
+    E, A, B, C = rail_surrogate(N_SMALL)
+    outs = {}
+    for dev in (CARD, "cpu"):
+        prob = newton_problem(E, A, B, C, dev)
+        before = k1.launches
+        t0 = time.perf_counter()
+        X, info, warned = run_newton(prob, CAPACITY, SMALL_NEWTON_MAXITERS)
+        if dev == CARD:
+            torch.cuda.synchronize()
+            check(k1.launches > before, f"n={N_SMALL} Newton: K1 was not launched")
+        wall = time.perf_counter() - t0
+        K = feedback_K(prob.E, prob.G.L, X).cpu()
+        outs[dev] = (LowRank(L=X.L.cpu(), D=X.D.cpu(), k=X.k), K, info)
+        log(f"[n={N_SMALL} newton] {dev}: {wall:.3f} s, {info['newton_steps']} Newton steps, "
+            f"ADI iters {info['adi_iters']}, rebuilds {info['shift_rebuilds']}, "
+            f"sigma {info['sigma']:.6e}, thetas {['%.6e' % t for t in info['thetas']]}, "
+            f"last rel residual {info['residuals'][-1] / info['residuals'][0]:.6e}, "
+            f"rank {X.k}/{X.r}, warnings {dict(warned)}")
+    (Xg, Kg, ig), (Xc, Kc, ic) = outs[CARD], outs["cpu"]
+    for key in ("newton_steps", "shift_rebuilds", "adi_iters"):
+        check(ig[key] == ic[key], f"n={N_SMALL} Newton: {key} differ (card {ig[key]}, CPU {ic[key]})")
+    check(len(ig["thetas"]) == len(ic["thetas"])
+          and np.allclose(ig["thetas"], ic["thetas"], rtol=NEWTON_REL_TOL, atol=0.0),
+          f"n={N_SMALL} Newton: thetas differ (card {ig['thetas']}, CPU {ic['thetas']})")
+    floor = N_SMALL * float(torch.finfo(torch.float64).eps) * ic["residuals"][0]
+    check(len(ig["residuals"]) == len(ic["residuals"])
+          and np.allclose(ig["residuals"], ic["residuals"], rtol=NEWTON_REL_TOL, atol=floor),
+          f"n={N_SMALL} Newton: residual histories differ beyond {NEWTON_REL_TOL}")
+    rel_X = lr_rel_diff(Xg, Xc)
+    rel_K = float(torch.linalg.norm(Kg - Kc) / torch.linalg.norm(Kc))
+    log(f"[n={N_SMALL} newton] card vs CPU: X rel {rel_X:.3e}, K rel {rel_K:.3e}")
+    check(rel_X <= NEWTON_REL_TOL and rel_K <= NEWTON_REL_TOL,
+          f"n={N_SMALL} Newton: card and CPU X or K differ beyond {NEWTON_REL_TOL}")
+
+
+class StepLog(Observer):
+    """At each Newton step's ``gare_step`` event: the host clock (after a
+    synchronize), K1 launches, Krylov iterations, host seconds of shift
+    rebuilds and the device memory, current and peak."""
+
+    def __init__(self):
+        self.rows = []
+
+    def observe_gare_step(self, iter, X, residual, residual_norm):
+        torch.cuda.synchronize()
+        self.rows.append((iter, time.perf_counter(), k1.launches, blocklinear.krylov_iterations,
+                          compiled.shift_rebuild_seconds, residual_norm, X.k,
+                          torch.cuda.memory_allocated() / 2**30,
+                          torch.cuda.max_memory_allocated() / 2**30))
+
+
+def phase_newton_full(E, A, B, C, dev, capacity):
+    """The Newton path at full size on the card, run to its end whatever the
+    outcome.  Fails on an exception, a non-finite X, K or residual, or a
+    last residual that an independent evaluation does not confirm.  Returns
+    the K1 launches of the run."""
+    t0 = time.perf_counter()
+    prob = newton_problem(E, A, B, C, dev)
+    torch.cuda.synchronize()
+    log(f"[n={N_FULL} newton] DIA pencil on the card in {time.perf_counter() - t0:.2f} s; "
+        f"capacity {capacity}, r_res {SWEEP_CFG.r_res}, reltol {NEWTON_RELTOL}, "
+        f"maxiters {NEWTON_MAXITERS}, {NEWTON_SHIFTS}")
+    steps = StepLog()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = 0  # the Newton path's run starts here
+    blocklinear.krylov_iterations = 0
+    compiled.shift_rebuild_seconds = 0.0
+    t0 = time.perf_counter()
+    X, info, warned = run_newton(prob, capacity, NEWTON_MAXITERS, observer=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1.launches  # the run ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    rows = steps.rows + [(None, t0 + wall, launches, blocklinear.krylov_iterations,
+                          compiled.shift_rebuild_seconds, None, X.k, None, peak)]
+    log(f"[n={N_FULL} newton] from solver start to the first step: {rows[0][1] - t0:.3f} s")
+    for a, b in zip(rows, rows[1:]):
+        log(f"[n={N_FULL} newton] step {a[0]}: residual {a[5]:.6e}, rank {a[6]}, then "
+            f"{b[1] - a[1]:.3f} s, K1 launches {b[2] - a[2]}, Krylov iterations "
+            f"{b[3] - a[3]}, rebuild host {b[4] - a[4]:.3f} s; memory {a[7]:.2f} GiB, "
+            f"peak so far {a[8]:.2f} GiB")
+    for text, count in warned.items():
+        log(f"[n={N_FULL} newton] warning ({count}x): {text}")
+
+    K = feedback_K(prob.E, prob.G.L, X)
+    hist = info["residuals"]
+    rel_solver = hist[-1] / hist[0]
+    # The solver's last residual is that of the θ-stage problem it ended in
+    # (G_θ = θ·G; θ = 1 unless it stopped inside the continuation).
+    theta = info["thetas"][-1] if info["thetas"] else 1.0
+    G_theta = LowRank(L=prob.G.L, D=theta * prob.G.D, k=prob.G.k)
+    norm_Q = lr_norm(prob.Q)
+    rel_ind = float(lr_norm(residual_gare_lowrank(prob.E, prob.A, G_theta, prob.Q, X)) / norm_Q)
+    rel_full = float(lr_norm(residual_gare_lowrank(prob.E, prob.A, prob.G, prob.Q, X)) / norm_Q)
+    log(f"[n={N_FULL} newton] converged {info['converged']}, final relative residual "
+        f"{rel_solver:.6e} at theta {theta:.6e} (independent {rel_ind:.6e}); of the GARE "
+        f"itself (theta 1) {rel_full:.6e}; target {NEWTON_RELTOL:g}")
+    log(f"[n={N_FULL} newton] wall {wall:.3f} s, {info['newton_steps']} Newton steps, "
+        f"ADI iters {info['adi_iters']} ({sum(info['adi_iters'])} in all), "
+        f"{info['shift_rebuilds']} shift rebuilds ({compiled.shift_rebuild_seconds:.3f} s on the host)")
+    log(f"[n={N_FULL} newton] sigma {info['sigma']:.6e}, {len(info['thetas'])} theta-stages "
+        f"{['%.6e' % t for t in info['thetas']]}, line-search lambdas "
+        f"{['%.3e' % lam for lam in info['linesearch_lams']]}")
+    log(f"[n={N_FULL} newton] final rank {X.k}/{X.r} (capacity reached: {X.k == X.r}); "
+        f"K1 launches {launches}, Krylov iterations {blocklinear.krylov_iterations}; "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"[n={N_FULL} newton] residual history {['%.6e' % (h / hist[0]) for h in hist]}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (X.L, X.D, K))
+    check(finite, "n=79841 Newton: non-finite X or K")
+    check(bool(np.isfinite(hist).all()), "n=79841 Newton: non-finite residual")
+    floor = N_FULL * float(torch.finfo(torch.float64).eps)  # the residual's rounding floor
+    check(abs(rel_ind - rel_solver) <= RESIDUAL_AGREE_TOL * rel_solver + floor,
+          f"n=79841 Newton: independent residual {rel_ind:.6e} differs from the "
+          f"solver's {rel_solver:.6e} by more than {RESIDUAL_AGREE_TOL}")
+    check(launches > 0, "n=79841 Newton: K1 was not launched")
+    return launches
+
+
 def kernel_line(name, launches, max_abs, timing, library, bound):
+    """One kernel's entry; ``launches`` maps each main path to its count."""
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max_abs, "ms": timing[0],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max_abs, "ms": timing[0],
             "plain_ms": timing[1], "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library}
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--newton-only", action="store_true",
+                    help="build the kernels and run only the full-size Newton phase")
+    ap.add_argument("--newton-capacity", type=int, default=CAPACITY,
+                    help="capacity of X in the full-size Newton phase (default %(default)s)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -593,28 +785,35 @@ def main() -> int:
     try:
         phase_build()
         E, A, B, C = rail_surrogate(N_FULL)
-        k1_err, k1_t, k1_cold, k1_lib, k1_bound = phase_kernels(E, A, dev)
-        t0 = time.perf_counter()
-        E_b = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
-        torch.cuda.synchronize()
-        log(f"[n={N_FULL} bell] block-ELL pencil built on the host and uploaded in "
-            f"{time.perf_counter() - t0:.2f} s: data {tuple(E_b[0].data.shape)}, "
-            f"{E_b[0].data.numel() * 8 / 1e6:.1f} MB per array in f64")
-        k2_err, k2_t, k2_lib, k2_bound = phase_k2(E_b, E, A, dev)
-        phase_small_step()
-        k1_launches = phase_full_step(E, A, B, C, dev)
-        phase_bell_small()
-        k2_launches = phase_bell_full(E, A, B, C, E_b, dev)
+        if args.newton_only:
+            phase_newton_full(E, A, B, C, dev, args.newton_capacity)
+        else:
+            k1_err, k1_t, k1_cold, k1_lib, k1_bound = phase_kernels(E, A, dev)
+            t0 = time.perf_counter()
+            E_b = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+            torch.cuda.synchronize()
+            log(f"[n={N_FULL} bell] block-ELL pencil built on the host and uploaded in "
+                f"{time.perf_counter() - t0:.2f} s: data {tuple(E_b[0].data.shape)}, "
+                f"{E_b[0].data.numel() * 8 / 1e6:.1f} MB per array in f64")
+            k2_err, k2_t, k2_lib, k2_bound = phase_k2(E_b, E, A, dev)
+            phase_small_step()
+            k1_launches = {"dia_ros1": phase_full_step(E, A, B, C, dev)}
+            phase_bell_small()
+            k2_launches = {"bell_ros2": phase_bell_full(E, A, B, C, E_b, dev)}
+            del E_b  # the Newton path's peak memory is its own
+            phase_newton_small()
+            k1_launches["gare_newton"] = phase_newton_full(E, A, B, C, dev, args.newton_capacity)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    key1, key2 = ("mmT", "float64", 48), ("mm", "float64", 48)
-    # K1's time is the cold one: its operands are not in the L2, as its
-    # bound assumes.
-    log(json.dumps({"kernels": [
-        kernel_line("dia_spmm", k1_launches, k1_err, (k1_cold[key1], k1_t[key1][1]),
-                    k1_lib[key1], k1_bound),
-        kernel_line("bell_spmm", k2_launches, k2_err, k2_t[key2], k2_lib[key2], k2_bound)]}))
+    if not args.newton_only:
+        key1, key2 = ("mmT", "float64", 48), ("mm", "float64", 48)
+        # K1's time is the cold one: its operands are not in the L2, as its
+        # bound assumes.
+        log(json.dumps({"kernels": [
+            kernel_line("dia_spmm", k1_launches, k1_err, (k1_cold[key1], k1_t[key1][1]),
+                        k1_lib[key1], k1_bound),
+            kernel_line("bell_spmm", k2_launches, k2_err, k2_t[key2], k2_lib[key2], k2_bound)]}))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {

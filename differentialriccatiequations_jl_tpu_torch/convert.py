@@ -13,6 +13,7 @@ import torch
 
 from .lowrank import LowRank
 from .models.compiled import DiaShiftOps, SparseShiftOps
+from .models.problems import GAREProblem
 from .ops.blocklinear import Krylov
 from .ops.dia import DiaOp
 from .ops.sparse import BellOp
@@ -33,6 +34,16 @@ def dia_op_from_numpy(data, data_t, offsets, n, nnz, symmetric=None,
 def lowrank_from_numpy(L, D, k, device=None) -> LowRank:
     """`LowRank` from padded factors and the active rank."""
     return LowRank(L=_t(L, device), D=_t(D, device), k=int(k))
+
+
+def gare_problem_from_numpy(E: dict, A: dict, G, Q, device=None) -> GAREProblem:
+    """`GAREProblem` on banded operators: ``E`` and ``A`` are the keyword
+    arguments of `dia_op_from_numpy` (the ``DiaOp`` storage), ``G`` and
+    ``Q`` the ``(L, D, k)`` of the low-rank factors."""
+    return GAREProblem(dia_op_from_numpy(**E, device=device),
+                       dia_op_from_numpy(**A, device=device),
+                       lowrank_from_numpy(*G, device=device),
+                       lowrank_from_numpy(*Q, device=device))
 
 
 def krylov_from(cfg) -> Krylov | None:

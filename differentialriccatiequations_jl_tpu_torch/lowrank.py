@@ -80,6 +80,17 @@ def lowrank(L, D=None, k: int | None = None) -> LowRank:
     return LowRank(L=_mask_cols(L, k), D=_mask_inner(D, k), k=k)
 
 
+def lr_zero(n: int, r: int, dtype: torch.dtype, device=None) -> LowRank:
+    """Rank-0 factorization with storage capacity ``r``."""
+    return LowRank(L=torch.zeros((n, r), dtype=dtype, device=device),
+                   D=torch.zeros((r, r), dtype=dtype, device=device), k=0)
+
+
+def lr_scale(alpha: float, X: LowRank) -> LowRank:
+    """``alpha * X`` (the inner factor scaled)."""
+    return LowRank(L=X.L, D=alpha * X.D, k=X.k)
+
+
 def lr_with_capacity(X: LowRank, r_new: int) -> LowRank:
     """Return ``X`` with the buffer grown/shrunk to width ``r_new``.
 

@@ -1,9 +1,10 @@
-"""The compiled LRSIF Rosenbrock GDRE steps and sweeps: ADI with
-precomputed shifted operators.
+"""The compiled LRSIF Rosenbrock GDRE steps and sweeps and the compiled
+Kleinman–Newton GARE solver: ADI with precomputed shifted operators.
 
 Port of the JAX package's ``models/compiled.py``: `ros1_step_compiled`,
-`ros2_step_compiled` and the sweeps `solve_gdre_ros1_compiled` /
-`solve_gdre_ros2_compiled` → `adi_compiled` → block-Jacobi preconditioned
+`ros2_step_compiled`, the sweeps `solve_gdre_ros1_compiled` /
+`solve_gdre_ros2_compiled` and the Newton solver
+`solve_gare_newton_compiled` → `adi_compiled` → block-Jacobi preconditioned
 Krylov solves over precomputed shifted operators (`DiaShiftOps` for banded
 pencils, `SparseShiftOps` for block-ELL ones) with an SMW feedback
 correction → `lr_compress`.  The JAX package compiles a step into one
@@ -29,20 +30,26 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
+import warnings
 
 import numpy as np
 import torch
 
-from ..lowrank import LowRank, _mask_cols, lr_add, lr_compress, lr_with_capacity
+from ..lowrank import (
+    LowRank, _mask_cols, lr_add, lr_compress, lr_norm, lr_scale, lr_with_capacity,
+    lr_zero)
 from ..ops.blocklinear import (
     DenseLUSolver, Krylov, KrylovSolver, PairBlockPrec, PairSMWSolver,
     SMWSolver, block_jacobi_inverses)
 from ..ops.dia import DiaOp, DiaPairOp
 from ..ops.operators import DenseOp, LowRankUpdateOp, lin_comb, lr_update, scale_op
 from ..ops.sparse import BellOp
+from ..utils.callbacks import notify
 from .problems import DRESolution
-from .residuals import residual_gale_lowrank
+from .residuals import residual_gale_lowrank, residual_gare_lowrank
 from .rosenbrock_lowrank import _ros2_rhs1, _ros2_rhs2, feedback_K, time_grid
+from .shifts import heuristic_shifts_host
 
 
 #: Block size of the block-Jacobi preconditioner.
@@ -480,6 +487,70 @@ def pair_encode_shifts(shifts, rdtype=None) -> np.ndarray:
     return np.asarray(_pair_units(arr)).astype(rdtype)
 
 
+def _shift_buffer(sv, dtype: torch.dtype, nshifts: int, real_only: bool = False,
+                  pair_encode: bool = False) -> np.ndarray:
+    """Fixed-length host shift buffer: real if every shift is real, complex
+    otherwise; padded cyclically.
+
+    **Pair-preserving**: a complex ADI consumes a complex shift and advances
+    its cyclic pointer by 2, assuming the conjugate is the next entry.  The
+    buffer is therefore assembled from whole *units* — real singletons and
+    adjacent conjugate pairs — so a truncation never splits a pair and the
+    cyclic wrap lands on a unit boundary.  If the target length would cut a
+    pair and no real shift is available as filler, the buffer grows by one
+    slot instead (all-complex, odd ``nshifts``).
+
+    ``real_only``: substitute each complex shift with the equal-modulus real
+    shift ``-|v|`` (still in the open left half-plane, so the ADI stays
+    convergent; only the rate suffers): the route for cores without pair
+    tables.
+
+    ``pair_encode``: emit the 2-D real ``(nshifts, 2)`` pair encoding, one
+    ``(Re μ, |Im μ|)`` row per unit, with no adjacency constraints (the
+    all-real double step, `DiaShiftOps.pair_solver`)."""
+    arr = np.asarray(sv, np.complex128).ravel()
+    rdt = torch.empty((), dtype=dtype).numpy().real.dtype
+    if arr.size == 0:
+        raise ValueError("empty shift set")
+    if pair_encode:
+        units = _pair_units(arr)
+        out = [units[i % len(units)] for i in range(nshifts)]
+        return np.asarray(out, np.float64).astype(rdt)
+    if real_only:
+        arr = np.where(np.abs(arr.imag) > 0, -np.abs(arr), arr.real + 0j)
+    if np.allclose(arr.imag, 0.0):
+        if arr.size < nshifts:
+            arr = np.tile(arr, -(-nshifts // arr.size))
+        return arr[:nshifts].real.astype(rdt)
+
+    # Group into units: real singletons / conjugate pairs (made adjacent).
+    units, i = [], 0
+    tol = 1e-12
+    while i < arr.size:
+        v = arr[i]
+        if abs(v.imag) <= tol * max(abs(v.real), 1e-300):
+            units.append((complex(v.real),))
+            i += 1
+        elif i + 1 < arr.size and np.isclose(arr[i + 1], np.conj(v)):
+            units.append((complex(v), complex(np.conj(v))))
+            i += 2
+        else:
+            # Conjugate not adjacent (or missing): synthesize the pair so
+            # the double step's recombination stays exact.
+            units.append((complex(v), complex(np.conj(v))))
+            i += 1
+    real_units = [u for u in units if len(u) == 1]
+
+    out, ui = [], 0
+    while len(out) < nshifts:
+        u = units[ui % len(units)]
+        ui += 1
+        if len(out) + len(u) > nshifts:
+            u = real_units[0] if real_units else u  # grow by 1 if no filler
+        out.extend(u)
+    return np.asarray(out).astype(np.result_type(rdt, np.complex64))
+
+
 def encode_shifts_for_operator(shifts, core) -> np.ndarray:
     """The shift buffer as the sweep hands it to the shift builders.
 
@@ -646,3 +717,383 @@ def solve_gdre_ros2_compiled(prob, *, dt: float, shifts, cfg: CompiledConfig,
     F_core = lin_comb(scale_op(prob.A, _ROS2_GAMMA * tau), -0.5, prob.E)
     return _sweep(ros2_step_compiled, prob, tstops, F_core, shifts, cfg,
                   capacity, abstol, save_state, krylov_cfg, observer)
+
+
+# --- Kleinman–Newton for the GARE ------------------------------------------------
+
+#: Host seconds that `solve_gare_newton_compiled` spent computing closed-loop
+#: Penzl shifts (the sparse LUs and Arnoldi runs on the host) in this process.
+shift_rebuild_seconds = 0.0
+
+
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (the JAX package's ``dtype.type(x)``)."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class PerStepHeuristic:
+    """Recompute Penzl shifts on the **closed-loop** pencil ``(E, A − BKᵢ)``
+    when the feedback has moved (see `solve_gare_newton_compiled`): a fixed
+    open-loop shift buffer stalls the ADI as soon as the feedback moves the
+    spectrum (strong-control regimes like ``G = 10⁶BBᵀ``)."""
+
+    nshifts: int = 16
+    kp: int = 20
+    km: int = 20
+
+
+def _linesearch_combine(X_prev: LowRank, X_tilde: LowRank, lam: float,
+                        capacity: int) -> LowRank:
+    """``(1−λ)·X_prev + λ·X̃`` compressed back to the iterate capacity."""
+    X = lr_add(lr_scale(1.0 - lam, X_prev), lr_scale(lam, X_tilde),
+               r_out=X_prev.r + X_tilde.r)
+    return lr_compress(X, r_out=capacity)
+
+
+def _newton_step_compiled(E, A, B, X: LowRank, K, res: LowRank, shifts,
+                          inner_abstol: float, cfg: CompiledConfig, shift_lus):
+    """One Kleinman–Newton step: the closed-loop GALE with
+    ``F = A − BK`` warm-started at ``X``.
+
+    ``res`` is the **GARE residual factor at X**: mathematically the
+    warm-start closed-loop GALE residual (the cross terms cancel), and
+    numerically far better than re-assembling ``[RHS  EᵀL  FᵀL]``, which
+    cancels huge ``±KᵀK``-class terms.  Returns (X_new, adi_iters,
+    adi_exit_res)."""
+    F = LowRankUpdateOp(A, -1.0, B, K)
+    W0 = _mask_cols(res.L, res.k)
+    X_new, _, iters, ares = adi_compiled(E, F, W0, res.D, res.k, X, shifts,
+                                         inner_abstol, cfg, shift_lus)
+    return X_new, iters, ares
+
+
+def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
+                               capacity: int = 192, maxiters: int = 60,
+                               reltol: float | None = None, inexact: bool = True,
+                               krylov_cfg: Krylov | None = None, observer=None,
+                               inner_gmres=None, linesearch: bool = True,
+                               continuation_ratio: float = 1000.0,
+                               stage_reltol: float = 1e-1,
+                               shift_reuse_tol: float = 0.3,
+                               inner_solve_dtype=None):
+    """Kleinman–Newton for the GARE over `adi_compiled`, with Eisenstat–Walker
+    forcing and switch-back, an Armijo line search, a stall guard and
+    **continuation in the control strength**.  Runs on the device of the
+    problem's tensors.
+
+    ``shifts``: a fixed (cyclically consumed) host shift buffer, 1-D real or
+    pair-encoded, or a `PerStepHeuristic` that recomputes closed-loop Penzl
+    shifts (and the shifted cores) when the feedback has moved by more than
+    ``shift_reuse_tol`` in relative Frobenius norm.  Closed-loop shift sets
+    are pair-encoded on banded (`DiaOp`) cores and made real (``-|μ|``) on
+    any other core.
+
+    **Equilibration.**  ``GARE(E, A, G, Q)`` is solved as
+    ``GARE(E, A, G/σ, σQ)`` with ``σ = √(‖G‖/‖Q‖)`` and the solution
+    unscaled (``X = Y/σ``): exact, and it leaves ``K`` invariant.
+
+    **Continuation.**  Newton from ``X₀ = 0`` on strong-control problems has
+    a huge first-step residual hump.  The first (probe) step is
+    θ-independent (``K = 0``); when it shows a hump the solver solves the
+    family ``GARE(E, A, θĜ, Q̂)`` for ``θ: θ₀ → 1`` geometrically (factor
+    ``continuation_ratio``), intermediate stages only to ``stage_reltol``,
+    splitting a stage jump whose entry residual exceeds 1e3 × the previous
+    stage's exit residual.
+
+    ``inner_gmres`` (Newton with inner FGMRES) and ``inner_solve_dtype``
+    (mixed-precision inner solves) are not ported and raise.
+
+    Returns (X, info): the residual history in the original problem's
+    units, ADI iteration counts, the θ log, line-search λs, the shift
+    rebuild count, ``newton_steps`` and ``converged``.
+    """
+    global shift_rebuild_seconds
+    if inner_gmres is not None:
+        raise NotImplementedError(
+            "Newton with inner FGMRES (inner_gmres=) belongs to the GMRES "
+            "slice and is not ported yet")
+    if inner_solve_dtype is not None:
+        raise NotImplementedError(
+            "mixed-precision inner solves (inner_solve_dtype=) are not ported yet")
+
+    E, A, Q = prob.E, prob.A, prob.Q
+    n = Q.n
+    dtype, dev = prob.G.L.dtype, prob.G.L.device
+    notify(observer, "gare_start", prob, None)
+
+    # --- scale equilibration (exact) ---------------------------------------
+    # GARE(E, A, G/σ, σQ) has solution Y = σX; σ = √(‖G‖/‖Q‖) balances
+    # ‖Ĝ‖ = ‖Q̂‖.
+    norm_G = float(lr_norm(prob.G))
+    norm_Q = float(lr_norm(Q))
+    sigma = math.sqrt(norm_G / norm_Q) if norm_G > 0 and norm_Q > 0 else 1.0
+    if 0.25 < sigma < 4.0:
+        sigma = 1.0  # already balanced; skip the scaling round trip
+    sqrt_s = _in_dtype(math.sqrt(sigma), dtype)
+    B = prob.G.L[:, :prob.G.k] / sqrt_s
+    Qs = LowRank(L=sqrt_s * Q.L, D=Q.D, k=Q.k)
+    Gs = LowRank(L=prob.G.L / sqrt_s, D=prob.G.D, k=prob.G.k)
+
+    eps = float(torch.finfo(dtype).eps)
+    if reltol is None:
+        reltol = n * eps
+    res0_norm = sigma * norm_Q  # ‖σQ‖ = ‖Q̂‖ = residual at X = 0
+    abstol = reltol * res0_norm  # scaled units (≡ reltol·‖Q‖ original)
+    inner_reltol = reltol / 10.0
+
+    per_step = isinstance(shifts, PerStepHeuristic)
+    block_cache = {}
+    base_A = A.A if isinstance(A, LowRankUpdateOp) else A
+    # No 1-D complex route: closed-loop conjugate pairs take the all-real
+    # stacked double step on banded cores and are made real elsewhere.
+    pair_shifts = isinstance(base_A, DiaOp)
+    if per_step:
+        strat = shifts
+        E_sp = E.to_scipy()
+        A_sp = A.to_scipy()
+        # Mean row 2-norm of E: converts shift magnitudes (pencil eigenvalue
+        # units) to A-entry units for the feedback-perturbation gate below.
+        e_row_scale = float(np.sqrt((E_sp.data ** 2).sum() / E_sp.shape[0]))
+        lus = None
+        shifts = None
+        shift_lu_cache = {}  # open-loop splu(E)/splu(A) shared by rebuilds
+    else:
+        shifts = encode_shifts_for_operator(shifts, A)
+        check_shift_pairing(shifts)
+        lus = build_step_shift_solvers(E, A, shifts, krylov_cfg,
+                                       block_cache=block_cache)
+
+    def gare_res(X, theta):
+        """GARE residual factor for the θ-stage problem (G_θ = θ·Ĝ)."""
+        Gt = Gs if theta == 1.0 else LowRank(
+            L=Gs.L, D=_in_dtype(theta, dtype) * Gs.D, k=Gs.k)
+        return residual_gare_lowrank(E, A, Gt, Qs, X, r_out=cfg.r_res)
+
+    X = lr_zero(n, capacity, dtype, dev)
+    X_prev = None
+    theta = 1.0
+    probing = True       # hump detection armed until the first accepted step
+    just_staged = True   # suppress line search across stage boundaries
+    history, adi_iters, thetas, lams = [], [], [], []
+    shift_rebuilds = 0
+    K_at_shifts = None
+    stalls = 0
+    converged = False
+    newton_steps = 0
+    res_norm_prev = math.inf
+    eta_cap = 0.1
+    theta_base = None      # θ of the last converged stage
+    stage_exit_res = None  # residual at that stage's convergence
+    hump_cap = 1.0e3       # max stage-entry residual growth before a split
+    ls_failures = 0
+    while True:
+        Bt = B if theta == 1.0 else _in_dtype(math.sqrt(theta), dtype) * B
+        K = feedback_K(E, Bt, X)
+        res = gare_res(X, theta)
+        res_norm = float(lr_norm(res))
+
+        # Adaptive stage splitting: a θ jump whose entry residual exceeds
+        # ``hump_cap ×`` the previous stage's exit residual is split
+        # geometrically until the hump is bounded; at ratio < 4 whatever
+        # remains is accepted.
+        if (just_staged and stage_exit_res is not None
+                and theta > theta_base
+                and theta / theta_base >= 4.0
+                and res_norm > hump_cap * max(stage_exit_res, abstol)):
+            theta = math.sqrt(theta_base * theta)
+            thetas[-1] = theta
+            notify(observer, "gare_metadata", "continuation split", theta)
+            continue
+
+        if (X_prev is not None and not just_staged
+                and res_norm > 0.9 * res_norm_prev):
+            if probing and res_norm > 10.0 * res_norm_prev:
+                # Hump on the probe step: enter continuation.  The probe step
+                # is θ-independent (K was 0), so X is also the first Newton
+                # iterate of the θ₀-stage problem; keep it.
+                theta = min(1.0, 0.3 * res_norm_prev / res_norm)
+                probing = False
+                just_staged = True
+                thetas.append(theta)
+                notify(observer, "gare_metadata", "continuation", theta)
+                continue
+            if linesearch:
+                # Armijo line search: backtrack along the segment to X_prev
+                # until sufficient decrease.
+                armijo, beta = 0.1, 0.5
+                lam = beta
+                X_tilde = X
+                failed = False
+                while True:
+                    X_try = _linesearch_combine(X_prev, X_tilde, lam, capacity)
+                    res_try = gare_res(X_try, theta)
+                    rn_try = float(lr_norm(res_try))
+                    if rn_try < (1.0 - lam * armijo) * res_norm_prev:
+                        X, res, res_norm = X_try, res_try, rn_try
+                        K = feedback_K(E, Bt, X)
+                        break
+                    lam *= beta
+                    if lam < eps:
+                        failed = True
+                        break
+                if failed:
+                    # No descent along the whole segment: reject the step,
+                    # revert to X_prev, tighten the forcing and retry; give
+                    # up after 3 rejections.
+                    ls_failures += 1
+                    eta_cap = eta_cap / 10.0
+                    warnings.warn(
+                        "Line search failed; rejecting the step and "
+                        f"tightening forcing (eta_cap={eta_cap:g})")
+                    lam = 0.0
+                    X = X_prev
+                    res = gare_res(X, theta)
+                    res_norm = float(lr_norm(res))
+                    K = feedback_K(E, Bt, X)
+                    if ls_failures >= 3:
+                        lams.append(lam)
+                        notify(observer, "gare_failed")
+                        warnings.warn(
+                            "compiled Newton: 3 rejected steps in a row "
+                            f"(residual={res_norm / sigma:g}); aborting")
+                        break
+                else:
+                    ls_failures = 0
+                lams.append(lam)
+                notify(observer, "gare_metadata", "line search", lam)
+        probing = probing and newton_steps == 0
+
+        history.append(res_norm / sigma)  # original units
+        notify(observer, "gare_step", newton_steps, X, res, res_norm / sigma)
+
+        stage_abstol = abstol if theta >= 1.0 else max(
+            abstol, stage_reltol * res0_norm)
+        if res_norm <= stage_abstol:
+            if theta >= 1.0:
+                converged = True
+                break
+            theta_base = theta
+            stage_exit_res = res_norm
+            theta = min(1.0, theta * continuation_ratio)
+            thetas.append(theta)
+            just_staged = True
+            res_norm_prev = math.inf
+            # The θ jump rescales B_θ, so the closed-loop pencil moved even
+            # though K did not: mark the shift set stale.
+            K_at_shifts = None
+            continue
+        if newton_steps >= maxiters:
+            notify(observer, "gare_failed")
+            warnings.warn(
+                f"compiled Newton did not converge: residual="
+                f"{res_norm / sigma:g} abstol={abstol / sigma:g} "
+                f"maxiters={maxiters}")
+            break
+
+        if inexact:
+            # Scale-invariant forcing (Eisenstat–Walker choice 2,
+            # η = min(η_cap, 0.9·(‖res_k‖/‖res_{k-1}‖)²)) with hybrid
+            # switch-back to the classical tolerance.
+            if res_norm_prev == math.inf:
+                ratio = 1.0
+                eta = eta_cap
+            else:
+                ratio = res_norm / max(res_norm_prev, 1e-300)
+                eta = min(eta_cap, 0.9 * ratio * ratio)
+            inner_abstol = max(eta * res_norm, inner_reltol * res_norm)
+        else:
+            ratio = (1.0 if res_norm_prev == math.inf
+                     else res_norm / max(res_norm_prev, 1e-300))
+            inner_abstol = inner_reltol * res_norm
+
+        # Rebuild the closed-loop shifts when they are stale.  Shifts depend
+        # on the feedback only through the pencil perturbation ``BθK``, so a
+        # rebuild waits until ‖BθK‖ matters against the spectral scale the
+        # shifts resolve (min |μ| · E-row-scale); then K moving ~100 %, or
+        # > 2·tol with slow progress, or > tol in the end game triggers it.
+        if per_step:
+            if K_at_shifts is None or K_at_shifts.shape != K.shape:
+                stale_rel = math.inf
+            else:
+                stale_rel = float(torch.linalg.norm(K - K_at_shifts)) / max(
+                    float(torch.linalg.norm(K)), 1e-300)
+            if lus is None or shifts is None:
+                feedback_matters = True  # first build is unconditional
+            else:
+                m_in = Bt.shape[1]
+                Gm = Bt.T @ Bt
+                p = float(torch.sqrt(torch.clamp(
+                    torch.sum(K * (Gm @ K)), min=0.0)))  # ‖BθK‖_F
+                sh = np.asarray(shifts)
+                s_abs = np.abs(sh[:, 0]) if sh.ndim == 2 else np.abs(sh.real)
+                s_min = float(np.min(s_abs[s_abs > 0])) \
+                    if np.any(s_abs > 0) else 0.0
+                feedback_matters = (
+                    p / max(np.sqrt(m_in), 1.0) > 0.05 * s_min * e_row_scale)
+            # The end game: the final θ-stage within 100× of the target.
+            asymptotic = theta >= 1.0 and res_norm <= 100.0 * abstol
+            slow = res_norm_prev != math.inf and ratio > 0.5
+            # Effectiveness veto: an inner ADI that just stopped within 5
+            # iterations counts as proof that the shifts still work, even if
+            # it stopped at its maxiters (kept as the JAX package has it).
+            last_iters = adi_iters[-1] if adi_iters else None
+            still_effective = (last_iters is not None
+                               and 0 < last_iters <= 5)
+            if lus is None or (feedback_matters and not still_effective
+                               and (
+                    stale_rel == math.inf or stale_rel > 1.0
+                    or (stale_rel > 2.0 * shift_reuse_tol and slow)
+                    or (stale_rel > shift_reuse_tol and asymptotic))):
+                # Rebuilds after the first run half-depth Arnoldi,
+                # warm-started from the previous rebuild's dominant Ritz
+                # vector (kept in the LU cache).
+                rebuilt_before = shifts is not None
+                kp_r = max(12, strat.kp // 2) if rebuilt_before else strat.kp
+                km_r = max(12, strat.km // 2) if rebuilt_before else strat.km
+                t0 = time.perf_counter()
+                sv = heuristic_shifts_host(
+                    E_sp, A_sp, strat.nshifts, kp_r, km_r,
+                    B=Bt.cpu().numpy(), K=K.cpu().numpy(),
+                    lu_cache=shift_lu_cache, warm_start=rebuilt_before)
+                shift_rebuild_seconds += time.perf_counter() - t0
+                shifts = _shift_buffer(sv, dtype, strat.nshifts,
+                                       real_only=not pair_shifts,
+                                       pair_encode=pair_shifts)
+                lus = None  # release the old shifted cores before the build
+                lus = build_step_shift_solvers(E, A, shifts, krylov_cfg,
+                                               block_cache=block_cache)
+                K_at_shifts = K
+                shift_rebuilds += 1
+
+        X_prev, res_norm_prev = X, res_norm
+        just_staged = False
+        X, iters, _ = _newton_step_compiled(E, A, Bt, X, K, res, shifts,
+                                            inner_abstol, cfg, lus)
+        adi_iters.append(int(iters))
+        newton_steps += 1
+        # Stall guard: the inner ADI accepted its entry residual (zero
+        # iterations).  Tighten the forcing once; a second consecutive stall
+        # aborts.
+        if int(iters) == 0:
+            stalls += 1
+            if stalls == 1:
+                eta_cap = eta_cap / 10.0
+            else:
+                notify(observer, "gare_failed")
+                warnings.warn(
+                    "compiled Newton stalled: inner ADI made no progress "
+                    f"twice (residual={res_norm / sigma:g}, "
+                    f"abstol={abstol / sigma:g}); aborting")
+                break
+        else:
+            stalls = 0
+
+    if sigma != 1.0:
+        X = lr_scale(1.0 / sigma, X)
+    notify(observer, "gare_done", len(history) - 1, X, None, res_norm / sigma)
+    return X, {"residuals": history, "adi_iters": adi_iters,
+               "abstol": abstol / sigma, "sigma": sigma,
+               "converged": converged, "thetas": thetas,
+               "linesearch_lams": lams, "shift_rebuilds": shift_rebuilds,
+               "newton_steps": newton_steps}

@@ -2,6 +2,7 @@
 ``models/problems.py`` that the compiled sweeps use).
 
 * `GDREProblem` — ``EᵀẊE = CᵀC + AᵀXE + EᵀXA − EᵀXBBᵀXE`` on ``tspan``,
+* `GAREProblem` — ``Q + AᵀXE + EᵀXA − EᵀXGXE = 0``,
 * `DRESolution` — the trajectory of states ``X`` and feedbacks ``K = BᵀXE``.
 """
 
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..lowrank import LowRank
 from ..ops.operators import as_operator
 
 
@@ -26,6 +28,23 @@ class GDREProblem:
     @property
     def n(self) -> int:
         return self.B.shape[0]
+
+
+class GAREProblem:
+    """Generalized continuous-time algebraic Riccati equation.
+
+    ``G`` and ``Q`` are `LowRank` factorizations (``G = B Bᵀ`` scaled,
+    ``Q = Cᵀ C``)."""
+
+    def __init__(self, E, A, G: LowRank, Q: LowRank):
+        self.E = as_operator(E)
+        self.A = as_operator(A)
+        self.G = G
+        self.Q = Q
+
+    @property
+    def n(self) -> int:
+        return self.G.n
 
 
 class DRESolution:

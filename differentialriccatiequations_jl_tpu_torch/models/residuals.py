@@ -1,5 +1,5 @@
-"""Low-rank GALE residual (port of the JAX package's ``models/residuals.py``,
-the part the compiled Ros1 step uses).
+"""Low-rank GALE and GARE residuals (port of the low-rank part of the JAX
+package's ``models/residuals.py``).
 
 The residual never forms the n×n matrix: it assembles a factor
 ``R = [G  EᵀL  AᵀL]`` with a small block middle matrix and compresses
@@ -34,4 +34,30 @@ def residual_gale_lowrank(E, A, C: LowRank, X: LowRank,
     T[qg:qg + r, qg + r:] = D
     T[qg + r:, qg:qg + r] = D
     res = LowRank(L=R, D=T, k=min(C.k + 2 * X.k, dim))
+    return lr_compress(res, r_out=r_out)
+
+
+def residual_gare_lowrank(E, A, G: LowRank, Q: LowRank, X: LowRank,
+                          r_out: int | None = None) -> LowRank:
+    """GARE residual ``Q + AᵀXE + EᵀXA − EᵀXGXE`` as a compressed `LowRank`.
+
+    Factor ``[Cᵀ  AᵀL  EᵀL]`` with middle matrix
+    ``[[S,0,0],[0,0,D],[0,D,−D LᵀG L D]]``.
+    """
+    E = as_operator(E)
+    A = as_operator(A)
+    Ct, S = Q.L, Q.D
+    B, Rinv = G.L, G.D
+    L, D = X.L, X.D
+    h = Ct.shape[1]
+    r = L.shape[1]
+    BtLD = (B.T @ L) @ D
+    R = torch.cat([Ct, A.tmm(L), E.tmm(L)], dim=1)
+    dim = h + 2 * r
+    T = R.new_zeros((dim, dim))
+    T[:h, :h] = S
+    T[h:h + r, h + r:] = D
+    T[h + r:, h:h + r] = D
+    T[h + r:, h + r:] = -(BtLD.T @ Rinv @ BtLD)
+    res = LowRank(L=R, D=T, k=min(Q.k + 2 * X.k, dim))
     return lr_compress(res, r_out=r_out)

@@ -11,22 +11,30 @@ CUDA activities), and once more unprofiled.
 * ``dia``: the LRSIF Ros1 step on the DIA pencil with the pair-encoded
   shift buffer (BiCGStab), as in `chip_smoke.py` phase 3;
 * ``bell``: the LRSIF Ros2 step on the block-ELL pencil with 16 real
-  Penzl shifts (CG), as in `chip_smoke.py` phase 5.
+  Penzl shifts (CG), as in `chip_smoke.py` phase 5;
+* ``newton``: Newton step 1 of `solve_gare_newton_compiled` (the step
+  after the first closed-loop shift build: its rebuild gate, inner ADI and
+  the next step's residual), as in `chip_smoke.py` phase 7.  A Newton step
+  cannot be rerun from its state, so the solve runs twice, cut after step 2:
+  once unprofiled, once with the profiler on for the step.
 
 Prints, per path, the step's wall clock with and without the profiler, the
 summed device time of all kernels and copies and its share of the profiled
-wall, the kernel launches and host syncs, and the largest device-time
-kernels; with ``OUT_DIR``, writes the full kernel tables to
-``OUT_DIR/profile_<path>.txt``.
+wall, the kernel launches and host syncs, K1's share of the device time,
+and the largest device-time kernels; with ``OUT_DIR``, writes the full
+kernel tables to ``OUT_DIR/profile_<path>.txt``.
 Exits non-zero without a CUDA device.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import re
 import sys
 import time
 from collections import defaultdict
 from pathlib import Path
+
+import warnings
 
 import numpy as np
 import scipy.sparse.linalg as spla
@@ -35,16 +43,19 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from differentialriccatiequations_jl_tpu_torch.lowrank import lowrank, lr_compress, lr_with_capacity
+from differentialriccatiequations_jl_tpu_torch.models import compiled
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
     _ROS2_GAMMA, _abstol_default, build_dia_shift_ops, build_step_shift_solvers,
-    pair_encode_shifts, ros1_step_compiled, ros2_step_compiled)
+    pair_encode_shifts, ros1_step_compiled, ros2_step_compiled, solve_gare_newton_compiled)
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
 from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb, scale_op
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil
+from differentialriccatiequations_jl_tpu_torch.utils.callbacks import Observer
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
 
 LAUNCH = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 SYNC = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+K1_NAMES = re.compile(r"\bdia_(rows|flat)_kernel<")  # csrc/dia_spmm.cu
 
 
 def timed(fn):
@@ -60,6 +71,12 @@ def report(name: str, step, out: Path | None) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_prof = timed(step)
     _, wall = timed(step)
+    summarize(name, prof, f"first {first:.3f} s, profiled {wall_prof:.3f} s, "
+              f"unprofiled {wall:.3f} s", wall_prof, out)
+
+
+def summarize(name: str, prof, walls: str, wall_prof: float, out: Path | None) -> None:
+    """Device time by kernel, launches and host syncs of a finished profile."""
     by_kernel = defaultdict(lambda: [0.0, 0])
     launches = syncs = 0
     for e in prof.events():
@@ -71,10 +88,11 @@ def report(name: str, step, out: Path | None) -> None:
         elif e.name in SYNC:
             syncs += 1
     device_ms = sum(t for t, _ in by_kernel.values()) / 1e3
+    k1_ms = sum(t for k, (t, _) in by_kernel.items() if K1_NAMES.search(k)) / 1e3
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-    cs.log(f"[{name}] wall first {first:.3f} s, profiled {wall_prof:.3f} s, unprofiled {wall:.3f} s; "
-           f"device time {device_ms:.1f} ms ({100 * device_ms / 1e3 / wall_prof:.1f} % of the "
-           f"profiled wall); kernel launches {launches}; host syncs {syncs}")
+    cs.log(f"[{name}] wall {walls}; device time {device_ms:.1f} ms ({100 * device_ms / 1e3 / wall_prof:.1f} % "
+           f"of the profiled wall); kernel launches {launches}; host syncs {syncs}; K1 {k1_ms:.1f} ms "
+           f"({100 * k1_ms / max(device_ms, 1e-9):.1f} % of the device time)")
     lines = [f"{t / 1e3:10.3f} ms {100 * t / 1e3 / device_ms:5.1f} % {c:7d} calls  {k}"
              for k, (t, c) in rows]
     for line in lines[:12]:
@@ -82,6 +100,44 @@ def report(name: str, step, out: Path | None) -> None:
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
         (out / f"profile_{name}.txt").write_text("\n".join(lines) + "\n")
+
+
+class StepWindow(Observer):
+    """Times (and, given a profiler, profiles) Newton step ``k``: from its
+    first ``gare_step`` event to step ``k + 1``'s first."""
+
+    def __init__(self, k: int, prof=None):
+        self.k, self.prof, self.t = k, prof, {}
+
+    def observe_gare_step(self, iter, X, residual, residual_norm):
+        if iter in (self.k, self.k + 1) and iter not in self.t:
+            torch.cuda.synchronize()
+            self.t[iter] = time.perf_counter()
+            if self.prof is not None:
+                (self.prof.start if iter == self.k else self.prof.stop)()
+
+    @property
+    def wall(self) -> float:
+        return self.t[self.k + 1] - self.t[self.k]
+
+
+def report_newton(E, A, B, C, dev, out: Path | None) -> None:
+    """Newton step 1 at full size, unprofiled and then profiled."""
+    prob = cs.newton_problem(E, A, B, C, dev)
+    walls = []
+    for prof in (None, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])):
+        window = StepWindow(1, prof)
+        rebuilds = compiled.shift_rebuild_seconds
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the depth cut warns
+            _, info = solve_gare_newton_compiled(
+                prob, shifts=cs.NEWTON_SHIFTS, cfg=cs.SWEEP_CFG, capacity=cs.CAPACITY,
+                maxiters=2, reltol=cs.NEWTON_RELTOL, observer=window)
+        walls.append(window.wall)
+    cs.log(f"[newton] step 1: {info['adi_iters'][1]} ADI iterations, shift builds in the solve "
+           f"{info['shift_rebuilds']} ({compiled.shift_rebuild_seconds - rebuilds:.3f} s on the host)")
+    summarize("newton", prof, f"unprofiled {walls[0]:.3f} s, profiled {walls[1]:.3f} s",
+              walls[1], out)
 
 
 def main() -> int:
@@ -119,6 +175,10 @@ def main() -> int:
     abstol = _abstol_default(prob)
     report("bell", lambda: ros2_step_compiled(E_b[0], E_b[1], prob.B, prob.C, X, tau, shifts,
                                               abstol, cs.SWEEP_CFG, lus), out)
+    del E_b, prob, lus, X
+
+    # Newton step 1 (chip_smoke.py phase 7).
+    report_newton(E, A, B, C, dev, out)
     return 0
 
 

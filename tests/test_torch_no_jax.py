@@ -39,6 +39,12 @@ bE, bA = bell_pencil(E, A, bs=16)
 F = shifted_bell(bE, bA, -1.0)
 F.mm(X); F.tmm(X); F.mm(X[:, 0]); F.tmm(X.T.contiguous().T)
 assert k2.launches == 0, k2.launches
+from differentialriccatiequations_jl_tpu_torch.lowrank import lowrank, lr_zero
+from differentialriccatiequations_jl_tpu_torch.models.residuals import residual_gare_lowrank
+from differentialriccatiequations_jl_tpu_torch.utils.callbacks import notify
+residual_gare_lowrank(E_op, E_op, lowrank(X[:, :2]), lowrank(X), lr_zero(100, 4, torch.float64))
+notify(None, "gare_start", None, None)
+assert k1.launches == 0, k1.launches
 assert not torch.backends.cuda.matmul.allow_tf32
 print("OK", len(names))
 """
@@ -49,7 +55,7 @@ def test_port_imports_no_jax_and_cpu_never_launches():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 21  # every module was imported
+    assert int(proc.stdout.split()[1]) >= 22  # every module was imported
 
 
 def test_no_jax_import_statements():

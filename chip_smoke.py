@@ -26,11 +26,32 @@ both compilers started together, and then:
 7. drives the Newton path at full size: `solve_gare_newton_compiled` on the
    n=79841 Rail surrogate's DIA pencil (the reference bench's north-star
    GARE configuration, f64, reltol 1e-10) to its end, counting K1 launches,
-   and holds its last residual against an independent evaluation.
+   and holds its last residual against an independent evaluation;
+8. runs the public ``solve`` on the card and on the CPU, small: the GALE by
+   the host ADI with Cyclic(Heuristic) shifts (n=1357), the first step of
+   the low-rank GDRE sweep by Ros1 with the default Projection shifts and
+   the GARE by Newton (both n=371), all on DIA pencils: equal ADI and
+   Newton counts, Krylov counts within 2 %, equal shift sequences, LDLᵀ and
+   K within tolerance;
+9. holds complex shifted products (μ = −1 ± 0.5i, scaled to the pencil) on
+   DIA and block-ELL pencils at n=1357 against their plain versions, and one
+   ADI double step on the card against the CPU, counting K1 and K2 launches;
+10. drives the public ``solve`` at full size on the DIA pencil: the GALE by
+    the host ADI with Cyclic(Heuristic(20, 30, 30)), the low-rank GDRE by
+    Ros1 (5 steps, Projection shifts on the closed loop) and the GARE by
+    Newton with Cyclic(Heuristic(20, 30, 30)), counting K1 launches;
+11. drives the same GALE on the block-ELL pencil, counting K2 launches.
+
+Phases 10 and 11 hold each solver's residual against an independent
+evaluation (`residual`).  Every full-size path (phases 3, 5, 7, 10 and 11)
+records the products it hands K1 and K2 (`ProductLog`: product, width,
+operand strides); after the run each kernel is held against its plain
+version at every one of them.
 
     python3 chip_smoke.py --newton-only [--newton-capacity 192]
 
-builds the kernels and runs phase 7 alone (at another capacity of ``X``).
+builds the kernels and runs phase 7 alone (at another capacity of ``X``);
+``--host-only`` builds them and runs phases 8 to 11.
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -55,6 +76,8 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
+from differentialriccatiequations_jl_tpu_torch import (
+    ADI, GALEProblem, Newton, Ros1, Shifts, init, residual, solve)
 from differentialriccatiequations_jl_tpu_torch.entry import SHIFTS, entry
 from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
 from differentialriccatiequations_jl_tpu_torch.kernels import build
@@ -69,11 +92,14 @@ from differentialriccatiequations_jl_tpu_torch.models.compiled import (
 from differentialriccatiequations_jl_tpu_torch.models.problems import GAREProblem, GDREProblem
 from differentialriccatiequations_jl_tpu_torch.models.residuals import residual_gare_lowrank
 from differentialriccatiequations_jl_tpu_torch.models.rosenbrock_lowrank import _ros2_rhs1, feedback_K
+from differentialriccatiequations_jl_tpu_torch.models import shifts as shift_mod
 from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_shifts_host
 from differentialriccatiequations_jl_tpu_torch.ops import blocklinear
+from differentialriccatiequations_jl_tpu_torch.ops.shifted import shifted_operator
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil, shifted_dia
 from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb, op_astype
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil, shifted_bell
+from differentialriccatiequations_jl_tpu_torch.utils import timers
 from differentialriccatiequations_jl_tpu_torch.utils.callbacks import Observer
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
 
@@ -85,7 +111,7 @@ KERNELS = {
     "dia_spmm": ("differentialriccatiequations_jl_tpu_torch/csrc/dia_spmm.cu",
                  "differentialriccatiequations_jl_tpu/ops/dia.py:281"),
     "bell_spmm": ("differentialriccatiequations_jl_tpu_torch/csrc/bell_spmm.cu",
-                  "differentialriccatiequations_jl_tpu/ops/sparse.py:163"),
+                  "differentialriccatiequations_jl_tpu/ops/sparse.py:164"),
 }
 # Kernel vs plain: K1 sums in the plain version's order, only FMA
 # contraction differs.  K2 in f64 sums over slots, then over the inner
@@ -131,6 +157,48 @@ NEWTON_REL_TOL = 1e-8
 # The solver's last residual against an independent evaluation: 1e-6
 # relative, or the rounding floor n·eps (relative to ‖Q‖).
 RESIDUAL_AGREE_TOL = 1e-6
+# The host API (phases 8-11).  The GALE of the README, the reference's
+# low-rank GDRE sweep (X0 = lowrank(E⁻¹Cᵀ, 0.01·I), tspan (4500, 4400),
+# dt = -20: 5 Ros1 steps) and the reference's rail.jl Newton (G = lowrank(B),
+# Q = lowrank(Cᵀ), inner ADI ignoring the initial guess, reltol 1e-10).
+N_TINY = 371
+HOST_SHIFTS = Shifts.Cyclic(Shifts.Heuristic(20, 30, 30))
+SMALL_HOST_SHIFTS = Shifts.Cyclic(Shifts.Heuristic(10, 20, 20))
+ROS1_DT = -20.0
+ROS1_TSPAN = (4500.0, 4400.0)
+# Phase 8 holds the Ros1 sweep's first step, card vs CPU: from the second
+# step on, a step's right-hand side and warm start are built from the last
+# step's compressed X, whose trailing digits follow each device's rounding;
+# the Projection shifts, Ritz values of the pencil projected onto that
+# factor, then move by far more than 1e-10 (a near-double Ritz value moves
+# with the square root of a perturbation), and the ADI, stopping at n·eps,
+# may take one iteration more or less.  The first step starts from the same
+# X0 on both devices.
+SMALL_ROS1_TSPAN = (4500.0, 4480.0)
+HOST_NEWTON_MAXITERS = 10
+# Card vs CPU, host API: equal ADI iterations in every ADI solve and equal
+# Newton steps; LDLᵀ and K within 1e-9 relative (1e-8 for Newton), as the
+# compiled paths above.  Shifts within 1e-10 relative where they were drawn
+# while the ADI's relative residual was above 1e-6; below that, the
+# residual factor carries its own rounding error (about eps·‖W₀‖/‖W‖
+# relative) into the projected pencil, and only the count and the
+# real/complex pattern of the shifts are held equal.
+SHIFT_REL_TOL = 1e-10
+SHIFT_GATE = 1e-6
+# Krylov iterations, card vs CPU, within 2 % in all: BiCGStab's erratic
+# residual crosses the 1e-12 stopping bound an iteration earlier or later
+# when its sums are taken in another order (measured at n = 1357: 2,725 on
+# the card, 2,699 on the CPU, 0.96 %, with equal shifts, ADI iterations and
+# LDLᵀ within 2.4e-13).
+KRYLOV_REL_TOL = 0.02
+# The host ADI's residual is that of its recursively updated factor W; the
+# independent evaluation is that of the returned X, whose compressions cut
+# eigenvalues below 100·eps·max|λ| every 10 iterations.  It is confirmed to
+# 1e-6 relative, or to 100·n·eps relative to the right-hand side (on the CPU
+# at n = 371, 1357 and 5177 the two differ by at most 26·n·eps).
+HOST_FLOOR_FACTOR = 100.0
+# Complex shifted products, kernel vs plain: f64 sums in another order.
+COMPLEX_REL_TOL = 1e-13
 
 
 class PhaseError(RuntimeError):
@@ -251,6 +319,83 @@ def check_close(name, got, ref, dname):
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
     check(rel_err <= REL_TOL[dname], f"{name}: rel err {rel_err:.3e} > {REL_TOL[dname]}")
     return abs_err, rel_err
+
+
+class ProductLog:
+    """The products that a main path hands K1 and K2, recorded at their
+    launch while the path runs: for each kernel, product (K1: ``mm`` on an
+    ``(N, q)`` operand, ``mmT`` on a ``(q, N)`` one, ``mmT_axpby`` with the
+    epilogue; K2: ``mm``), dtype, width ``q`` and operand strides, the first
+    operator storage seen.  After the run, `check` holds each kernel
+    against its plain version at every one of them, on fresh operands of
+    the same shape and strides: the kernels are checked at the widths the
+    path feeds them.  Its launches are not the path's: the path's counts
+    are read before it."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        self._launch = (k1._launch, k2._launch)
+        launch1, launch2 = self._launch
+
+        def k1_launch(data, offsets, X, axis, Z=None, alpha=1.0, beta=0.0):
+            op = "mm" if axis == 0 else ("mmT" if Z is None else "mmT_axpby")
+            key = ("K1", op, str(X.dtype).removeprefix("torch."), X.shape[1 - axis], X.stride())
+            if X.shape[1 - axis]:
+                self.seen.setdefault(key, (data, offsets, tuple(X.shape), alpha, beta))
+            return launch1(data, offsets, X, axis, Z=Z, alpha=alpha, beta=beta)
+
+        def k2_launch(cols, data, X):
+            key = ("K2", "mm", str(X.dtype).removeprefix("torch."), X.shape[1], X.stride())
+            if X.shape[1]:
+                self.seen.setdefault(key, (cols, data, tuple(X.shape)))
+            return launch2(cols, data, X)
+
+        k1._launch, k2._launch = k1_launch, k2_launch
+        return self
+
+    def __exit__(self, *exc):
+        k1._launch, k2._launch = self._launch
+        return False
+
+    def check(self, tag):
+        """Each recorded product, kernel vs plain (`REL_TOL`); logs the
+        widths and returns {kernel: max abs error}."""
+        gen = torch.Generator(device=CARD).manual_seed(5)
+        worst, widths = {}, collections.defaultdict(set)
+
+        def operand(shape, stride, dt):
+            X = torch.empty_strided(shape, stride, dtype=dt, device=CARD)
+            return X.copy_(torch.randn(shape, generator=gen, dtype=dt, device=CARD))
+
+        for key, rec in self.seen.items():
+            kern, op, dname, q, stride = key
+            dt = getattr(torch, dname)
+            if kern == "K1":
+                data, offsets, shape, alpha, beta = rec
+                X = operand(shape, stride, dt)
+                if op == "mm":
+                    got, ref = k1.dia_mm(data, offsets, X), k1.dia_mm_plain(data, offsets, X)
+                else:
+                    Z = torch.randn(shape, generator=gen, dtype=dt, device=CARD)
+                    Z = Z if op == "mmT_axpby" else None
+                    got = k1.dia_mm_t(data, offsets, X, Z=Z, alpha=alpha, beta=beta)
+                    ref = k1.dia_mm_t_plain(data, offsets, X)
+                    ref = ref if Z is None else alpha * ref + beta * Z
+            else:
+                cols, data, shape = rec
+                X = operand(shape, stride, dt)
+                got, ref = k2.bell_mm(cols, data, X), k2.bell_mm_plain(cols, data, X)
+            abs_err, _ = check_close(f"{tag} {kern} {op} {dname} q={q} strides {stride}",
+                                     got, ref, dname)
+            worst[kern] = max(worst.get(kern, 0.0), abs_err)
+            widths[(kern, op, dname)].add(q)
+        for (kern, op, dname), qs in sorted(widths.items()):
+            log(f"{tag} {kern} {op} {dname}: kernel = plain (rel {REL_TOL[dname]:g}) at the "
+                f"{len(qs)} widths the run fed it, q = {sorted(qs)}")
+        self.seen.clear()
+        return worst
 
 
 def csr_on(M, dt, dev):
@@ -755,6 +900,376 @@ def phase_newton_full(E, A, B, C, dev, capacity):
     return launches
 
 
+class HostLog(Observer):
+    """The events of one public ``solve``: every ADI shift with the relative
+    residual of its ADI when it was drawn, ADI solves, the last ADI solve's
+    problem and its last residual, Newton residuals and line-search λs."""
+
+    def __init__(self):
+        self.shifts, self.gates, self.solve_of, self.newton, self.lams = [], [], [], [], []
+        self.iters = []  # ADI iterations of each ADI solve
+        self.rn0 = self.rn = None
+        self.adi_solves = 0
+        self.last_prob = self.last_done = None
+
+    def observe_gale_start(self, prob, alg):
+        self.adi_solves += 1
+        self.last_prob = prob
+
+    def observe_gale_step(self, iter, X, residual, residual_norm):
+        if iter == 0:
+            self.rn0 = residual_norm
+        self.rn = residual_norm
+
+    def observe_gale_metadata(self, desc, metadata):
+        self.shifts.append(complex(metadata))
+        self.gates.append(self.rn / self.rn0 if self.rn0 else 0.0)
+        self.solve_of.append(self.adi_solves)
+
+    def observe_gale_done(self, iters, X, residual, residual_norm):
+        self.iters.append(iters)
+        self.last_done = (X, residual_norm)
+
+    def per_solve(self):
+        """``[(shifts, gates)]`` of each ADI solve."""
+        out = [([], []) for _ in range(self.adi_solves)]
+        for z, g, k in zip(self.shifts, self.gates, self.solve_of):
+            out[k - 1][0].append(z)
+            out[k - 1][1].append(g)
+        return out
+
+    def observe_gare_step(self, iter, X, residual, residual_norm):
+        self.newton.append(residual_norm)
+
+    def observe_gare_metadata(self, desc, metadata):
+        if desc == "line search":
+            self.lams.append(metadata)
+
+
+def canonical_pairs(shifts):
+    """The shift sequence with each adjacent conjugate pair ordered by
+    decreasing imaginary part: a pair's order is the eigensolver's and its
+    double step does not depend on it."""
+    out, i = [], 0
+    while i < len(shifts):
+        v = shifts[i]
+        if (v.imag != 0 and i + 1 < len(shifts)
+                and abs(shifts[i + 1] - v.conjugate()) <= 1e-8 * abs(v)):
+            out += sorted(shifts[i:i + 2], key=lambda z: -z.imag)
+            i += 2
+        else:
+            out.append(v)
+            i += 1
+    return out
+
+
+def host_problem(kind, E, A, B, C, ops, tspan=ROS1_TSPAN):
+    """The host-API problem ``kind`` (``gale``, ``ros1`` or ``newton``) on the
+    pencil operators ``ops`` (on their device), f64; ``tspan``: the GDRE's."""
+    Eo, Ao = ops
+    dev = Eo.device
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64, device=dev)
+
+    if kind == "gale":
+        return GALEProblem(Eo, Ao, lowrank(t(C.T)))
+    if kind == "ros1":
+        L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
+        X0 = lowrank(t(L0), 0.01 * torch.eye(C.shape[0], dtype=torch.float64, device=dev))
+        return GDREProblem(Eo, Ao, t(B), t(C), X0, tspan)
+    return GAREProblem(Eo, Ao, lowrank(t(B)), lowrank(t(C.T)))
+
+
+def run_host(kind, prob, alg):
+    """One public ``solve`` (the GALE through ``init``) with a `HostLog`.
+    Returns a dict: X, K (the last feedback, or None), wall, counts, the
+    solver's residual and the right-hand side's norm it is relative to."""
+    log_ = HostLog()
+    dev = prob.E.device
+    kry0, sol0 = blocklinear.krylov_iterations, blocklinear.krylov_solves
+    arn0, syn0 = shift_mod.arnoldi_matvecs, shift_mod.arnoldi_syncs
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        K = None
+        if kind == "gale":
+            solver = init(prob, alg, observer=log_)
+            X = solver.solve()
+            res, rhs = solver.residual_norm, float(lr_norm(prob.C))
+        elif kind == "ros1":
+            sol = solve(prob, alg, dt=ROS1_DT, observer=log_)
+            X, K = sol.X[-1], sol.K[-1]
+            res, rhs = log_.last_done[1], float(lr_norm(log_.last_prob.C))
+        else:
+            X = solve(prob, alg, observer=log_)
+            K = feedback_K(prob.E, prob.G.L, X)
+            res, rhs = log_.newton[-1], float(lr_norm(prob.Q))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"X": X, "K": K, "log": log_, "wall": time.perf_counter() - t0,
+            "krylov": blocklinear.krylov_iterations - kry0,
+            "solves": blocklinear.krylov_solves - sol0,
+            "arnoldi": (shift_mod.arnoldi_matvecs - arn0, shift_mod.arnoldi_syncs - syn0),
+            "res": res, "rhs": rhs,
+            "warnings": collections.Counter(str(w.message) for w in caught)}
+
+
+def independent_residual(kind, prob, out):
+    """The residual of the returned X evaluated anew (`residual`): of the
+    GALE; of the last Ros1 step's GALE at that step's X; of the GARE at a
+    recompressed copy of X (the solver's own is of X itself)."""
+    if kind == "gale":
+        return float(lr_norm(residual(prob, out["X"])))
+    if kind == "ros1":
+        return float(lr_norm(residual(out["log"].last_prob, out["log"].last_done[0])))
+    return float(lr_norm(residual(prob, lr_compress(out["X"]))))
+
+
+def confirm_residual(tag, kind, prob, out, n):
+    """Fails unless the independent evaluation confirms the solver's
+    residual: 1e-6 relative, or the floor (`HOST_FLOOR_FACTOR`·n·eps for
+    the ADI's recursive residual, n·eps for Newton's own evaluation)."""
+    ind = independent_residual(kind, prob, out)
+    eps = float(torch.finfo(torch.float64).eps)
+    floor = (n * eps if kind == "newton" else HOST_FLOOR_FACTOR * n * eps) * out["rhs"]
+    log(f"{tag}: solver's residual {out['res'] / out['rhs']:.6e}, independent "
+        f"{ind / out['rhs']:.6e} (relative to the right-hand side; floor "
+        f"{floor / out['rhs']:.3e})")
+    check(np.isfinite(ind) and np.isfinite(out["res"]), f"{tag}: non-finite residual")
+    check(abs(ind - out["res"]) <= RESIDUAL_AGREE_TOL * out["res"] + floor,
+          f"{tag}: independent residual {ind:.6e} does not confirm the solver's "
+          f"{out['res']:.6e}")
+    return ind
+
+
+def compare_host(tag, card, cpu, tol):
+    """Card vs CPU of one host-API solve: equal ADI solves, Newton steps and
+    ADI iterations in each ADI solve, Krylov iterations within
+    `KRYLOV_REL_TOL`, shift sequences (`SHIFT_REL_TOL` above `SHIFT_GATE`,
+    the real/complex pattern below), X and K within ``tol``."""
+    lg, lc = card["log"], cpu["log"]
+    check(lg.adi_solves == lc.adi_solves, f"{tag}: ADI solves differ")
+    check(lg.iters == lc.iters,
+          f"{tag}: ADI iterations differ (card {lg.iters}, CPU {lc.iters})")
+    rel, gated = [], []
+    for (zg, _), (zc, gc) in zip(lg.per_solve(), lc.per_solve()):
+        sg, sc = canonical_pairs(zg), canonical_pairs(zc)
+        check([z.imag != 0 for z in sg] == [z.imag != 0 for z in sc],
+              f"{tag}: real/complex shift patterns differ")
+        r = [abs(a - b) / abs(b) for a, b in zip(sg, sc)]
+        rel += r
+        gated += [x for x, g in zip(r, gc) if g >= SHIFT_GATE]
+    worst, worst_gated = max(rel, default=0.0), max(gated, default=0.0)
+    rel_X = lr_rel_diff(card["X"], LowRank(L=cpu["X"].L.to(card["X"].L.device),
+                                           D=cpu["X"].D.to(card["X"].L.device), k=cpu["X"].k))
+    rel_K = (0.0 if cpu["K"] is None else
+             float(torch.linalg.norm(card["K"].cpu() - cpu["K"]) / torch.linalg.norm(cpu["K"])))
+    log(f"{tag} card vs CPU: ADI iterations {len(lg.shifts)}/{len(lc.shifts)} "
+        f"(per ADI solve {lg.iters}/{lc.iters}), Krylov "
+        f"{card['krylov']}/{cpu['krylov']}, Newton steps {len(lg.newton)}/{len(lc.newton)}, "
+        f"shifts rel {worst_gated:.3e} ({len(gated)} drawn above {SHIFT_GATE:g}; all "
+        f"{worst:.3e}), LDLᵀ rel {rel_X:.3e}, K rel {rel_K:.3e}; card {card['wall']:.3f} s, "
+        f"CPU {cpu['wall']:.3f} s")
+    check(abs(card["krylov"] - cpu["krylov"]) <= KRYLOV_REL_TOL * cpu["krylov"],
+          f"{tag}: Krylov iterations differ beyond {KRYLOV_REL_TOL:.0%} (card "
+          f"{card['krylov']}, CPU {cpu['krylov']})")
+    check(len(lg.newton) == len(lc.newton), f"{tag}: Newton steps differ")
+    check(np.allclose(lg.lams, lc.lams, rtol=1e-8, atol=0.0), f"{tag}: line-search λs differ")
+    check(worst_gated <= SHIFT_REL_TOL, f"{tag}: shifts differ by {worst_gated:.3e}")
+    check(rel_X <= tol and rel_K <= tol, f"{tag}: card and CPU differ beyond {tol}")
+
+
+def phase_host_small():
+    """The host API on the card and on the CPU, small (phase 8); the Ros1
+    sweep cut to its first step (`SMALL_ROS1_TSPAN`)."""
+    cases = (("gale", N_SMALL, ADI(shifts=SMALL_HOST_SHIFTS, maxiters=200), STEP_REL_TOL),
+             ("ros1", N_TINY, Ros1(), STEP_REL_TOL),
+             ("newton", N_TINY, Newton(ADI(ignore_initial_guess=True,
+                                           shifts=Shifts.Projection(2)),
+                                       maxiters=10, reltol=NEWTON_RELTOL), NEWTON_REL_TOL))
+    for kind, n, alg, tol in cases:
+        E, A, B, C = rail_surrogate(n)
+        outs = {}
+        for dev in (CARD, "cpu"):
+            ops = dia_pencil(E, A, dtype=torch.float64, device=dev)
+            before = k1.launches
+            prob = host_problem(kind, E, A, B, C, ops, tspan=SMALL_ROS1_TSPAN)
+            outs[dev] = run_host(kind, prob, alg)
+            if dev == CARD:
+                check(k1.launches > before, f"[host n={n} {kind}]: K1 was not launched")
+        compare_host(f"[host n={n} {kind}]", outs[CARD], outs["cpu"], tol)
+
+
+def phase_complex():
+    """Complex shifted products through K1 and K2 against their plain
+    versions, and one ADI double step card vs CPU (phase 9)."""
+    E, A, B, C = rail_surrogate(N_SMALL)
+    scale = float(np.mean(np.abs(A.diagonal())) / np.mean(np.abs(E.diagonal())))
+    mu = complex(-1.0, 0.5) * scale
+    rng = np.random.default_rng(3)
+    worst = 0.0
+    for fmt in ("dia", "bell"):
+        kern = k1 if fmt == "dia" else k2
+
+        def pencil(dev):
+            if fmt == "dia":
+                return dia_pencil(E, A, dtype=torch.float64, device=dev)
+            return bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+
+        Eo, Ao = pencil(CARD)
+        F = shifted_operator(Eo, Ao, mu)
+        check(F.data.is_complex(), f"[complex {fmt}]: shifted operator is not complex")
+        if fmt == "dia":
+            def plain(X):
+                return k1.dia_mm_plain(F.data, F.offsets, X)
+        else:
+            def plain(X):
+                return k2.bell_mm_plain(F.cols, F.data, X)
+        for q in (1, 7, 48):
+            def arr(*shape):
+                return torch.as_tensor(rng.standard_normal(shape), device=CARD)
+
+            Xc = torch.complex(arr(N_SMALL, q), arr(N_SMALL, q))
+            cases = [("complex op, complex X", lambda: F.mm(Xc), lambda: plain(Xc), 2),
+                     ("complex op, real X", lambda: F.mm(Xc.real), lambda: plain(Xc.real), 2)]
+            if fmt == "dia":
+                Et = Eo.adjoint()
+                cases += [("complex op, lane-major", lambda: F.mmT(Xc.T.contiguous()),
+                           lambda: k1.dia_mm_t_plain(F.data, F.offsets, Xc.T.contiguous()), 2),
+                          ("real op, complex X", lambda: Eo.tmm(Xc),
+                           lambda: k1.dia_mm_plain(Et.data, Et.offsets, Xc), 1)]
+            else:
+                cases.append(("real op, complex X", lambda: Eo.tmm(Xc),
+                              lambda: k2.bell_mm_plain(Eo.cols_t, Eo.data_t, Xc), 1))
+            for name, run, ref, nl in cases:
+                before = kern.launches
+                y = run()
+                launched = kern.launches - before
+                r = ref()
+                torch.cuda.synchronize()
+                rel = float((y - r).abs().max() / r.abs().max())
+                worst = max(worst, rel)
+                log(f"[complex {fmt}] {name} q={q}: rel err {rel:.2e}, launches {launched}")
+                check(bool(torch.isfinite(y).all()), f"[complex {fmt}] {name}: non-finite")
+                check(launched == nl, f"[complex {fmt}] {name}: {launched} launches, expected {nl}")
+                check(rel <= COMPLEX_REL_TOL, f"[complex {fmt}] {name} q={q}: rel err {rel:.3e}")
+        # One ADI double step on the pair, card vs CPU.
+        outs = {}
+        for dev in (CARD, "cpu"):
+            ops = (Eo, Ao) if dev == CARD else pencil(dev)
+            prob = host_problem("gale", E, A, B, C, ops)
+            solver = init(prob, ADI(shifts=Shifts.Cyclic((mu, mu.conjugate())), maxiters=2,
+                                    warn_convergence=False))
+            before = kern.launches
+            solver.step()
+            if dev == CARD:
+                torch.cuda.synchronize()
+                check(kern.launches > before, f"[complex {fmt}] double step: no launch")
+            outs[dev] = (solver.X, solver.W.cpu(), kern.launches - before)
+        rel_X = lr_rel_diff(outs[CARD][0], LowRank(L=outs["cpu"][0].L.to(CARD),
+                                                   D=outs["cpu"][0].D.to(CARD), k=outs["cpu"][0].k))
+        rel_W = float(torch.linalg.norm(outs[CARD][1] - outs["cpu"][1])
+                      / torch.linalg.norm(outs["cpu"][1]))
+        log(f"[complex {fmt}] ADI double step at mu = {mu:.6f} (and its conjugate): card vs "
+            f"CPU LDLᵀ rel {rel_X:.3e}, W rel {rel_W:.3e}, launches {outs[CARD][2]}")
+        check(rel_X <= STEP_REL_TOL and rel_W <= STEP_REL_TOL,
+              f"[complex {fmt}] double step: card and CPU differ")
+    return worst
+
+
+def report_host(tag, kind, prob, out, n, kern):
+    """Prints one full-size host-API solve and applies the failure rules;
+    returns its launches of ``kern``."""
+    lg = out["log"]
+    X = out["X"]
+    ncplx = sum(1 for z in lg.shifts if z.imag != 0)
+    per = out["krylov"] / max(out["solves"], 1)
+    log(f"{tag}: wall {out['wall']:.3f} s, ADI solves {lg.adi_solves}, ADI iterations "
+        f"{len(lg.shifts)} ({len(lg.shifts) - ncplx} real shifts, {ncplx} complex), "
+        f"Newton steps {max(len(lg.newton) - 1, 0)}, line-search λs "
+        f"{['%.3e' % lam for lam in lg.lams]}, Krylov iterations {out['krylov']} in "
+        f"{out['solves']} solves ({per:.1f} a solve), Arnoldi matvecs {out['arnoldi'][0]} "
+        f"and host reads {out['arnoldi'][1]}, final rank {X.k}/{X.r}, "
+        f"{'K1' if kern is k1 else 'K2'} launches {out['launches']}, "
+        f"peak device memory {out['peak']:.2f} GiB")
+    for text, count in out["warnings"].items():
+        log(f"{tag} warning ({count}x): {text}")
+    for name, (sec, calls) in sorted(out["timers"].items()):
+        log(f"{tag} timer {name}: {sec:.3f} s in {calls} calls")
+    finite = all(bool(torch.isfinite(t).all()) for t in (X.L, X.D)) and (
+        out["K"] is None or bool(torch.isfinite(out["K"]).all()))
+    check(finite, f"{tag}: non-finite output")
+    confirm_residual(tag, kind, prob, out, n)
+    check(out["launches"] > 0, f"{tag}: the kernel was not launched")
+    return out["launches"]
+
+
+def run_full_host(kind, prob, alg, kern, tag):
+    """A full-size host-API run with its kernel's launches counted from 0 and
+    the timers on; then its kernel against its plain version at every
+    product the run fed it (`ProductLog`)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timers.reset()
+    timers.enable(True)
+    k1.launches = k2.launches = 0  # this path's run starts here
+    try:
+        with ProductLog() as products:
+            out = run_host(kind, prob, alg)
+    finally:
+        timers.enable(False)
+    out["launches"] = kern.launches  # and ends here
+    out["other_launches"] = (k2 if kern is k1 else k1).launches
+    out["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    out["timers"] = timers.report()
+    out["max_abs"] = products.check(tag)
+    return out
+
+
+def phase_host_full(E, A, B, C, dev):
+    """The public ``solve`` at full size on the DIA pencil (phase 10)."""
+    t0 = time.perf_counter()
+    ops = dia_pencil(E, A, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    log(f"[host n={N_FULL} dia] DIA pencil on the card in {time.perf_counter() - t0:.2f} s")
+    launches, worst = {}, 0.0
+    runs = (("gale", ADI(shifts=HOST_SHIFTS), "gale_adi_host"),
+            ("ros1", Ros1(), "gdre_ros1_host"),
+            ("newton", Newton(ADI(ignore_initial_guess=True, shifts=HOST_SHIFTS),
+                              maxiters=HOST_NEWTON_MAXITERS, reltol=NEWTON_RELTOL),
+             "gare_newton_host"))
+    for kind, alg, key in runs:
+        prob = host_problem(kind, E, A, B, C, ops)
+        tag = f"[host n={N_FULL} dia {kind}]"
+        out = run_full_host(kind, prob, alg, k1, tag)
+        launches[key] = report_host(tag, kind, prob, out, N_FULL, k1)
+        check(out["other_launches"] == 0, f"{tag}: K2 launched on the DIA path")
+        worst = max(worst, out["max_abs"]["K1"])
+    return launches, worst
+
+
+def phase_host_bell(E, A, B, C, E_b):
+    """The README's GALE on the block-ELL pencil at full size (phase 11)."""
+    prob = host_problem("gale", E, A, B, C, E_b)
+    tag = f"[host n={N_FULL} bell gale]"
+    out = run_full_host("gale", prob, ADI(shifts=HOST_SHIFTS), k2, tag)
+    launches = report_host(tag, "gale", prob, out, N_FULL, k2)
+    check(out["other_launches"] == 0, f"{tag}: K1 launched on the block-ELL path")
+    return {"gale_adi_host_bell": launches}, out["max_abs"]["K2"]
+
+
+def checked(tag, kern, run):
+    """``run()``, a full-size main path that returns its launches, under a
+    `ProductLog`; then the kernels against their plain versions at every
+    product it fed them.  Returns (launches, max abs error of ``kern``)."""
+    with ProductLog() as products:
+        launches = run()
+    return launches, products.check(tag).get(kern, 0.0)
+
+
 def kernel_line(name, launches, max_abs, timing, library, bound):
     """One kernel's entry; ``launches`` maps each main path to its count."""
     source, replaces = KERNELS[name]
@@ -771,6 +1286,8 @@ def main() -> int:
                     help="build the kernels and run only the full-size Newton phase")
     ap.add_argument("--newton-capacity", type=int, default=CAPACITY,
                     help="capacity of X in the full-size Newton phase (default %(default)s)")
+    ap.add_argument("--host-only", action="store_true",
+                    help="build the kernels and run only the host-API phases 8 to 11")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -786,7 +1303,13 @@ def main() -> int:
         phase_build()
         E, A, B, C = rail_surrogate(N_FULL)
         if args.newton_only:
-            phase_newton_full(E, A, B, C, dev, args.newton_capacity)
+            checked(f"[n={N_FULL} newton]", "K1",
+                    lambda: phase_newton_full(E, A, B, C, dev, args.newton_capacity))
+        elif args.host_only:
+            phase_host_small()
+            phase_complex()
+            phase_host_full(E, A, B, C, dev)
+            phase_host_bell(E, A, B, C, bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev))
         else:
             k1_err, k1_t, k1_cold, k1_lib, k1_bound = phase_kernels(E, A, dev)
             t0 = time.perf_counter()
@@ -797,16 +1320,30 @@ def main() -> int:
                 f"{E_b[0].data.numel() * 8 / 1e6:.1f} MB per array in f64")
             k2_err, k2_t, k2_lib, k2_bound = phase_k2(E_b, E, A, dev)
             phase_small_step()
-            k1_launches = {"dia_ros1": phase_full_step(E, A, B, C, dev)}
+            launches, err = checked(f"[n={N_FULL} dia ros1]", "K1",
+                                    lambda: phase_full_step(E, A, B, C, dev))
+            k1_launches, k1_err = {"dia_ros1": launches}, max(k1_err, err)
             phase_bell_small()
-            k2_launches = {"bell_ros2": phase_bell_full(E, A, B, C, E_b, dev)}
-            del E_b  # the Newton path's peak memory is its own
+            launches, err = checked(f"[n={N_FULL} bell ros2]", "K2",
+                                    lambda: phase_bell_full(E, A, B, C, E_b, dev))
+            k2_launches, k2_err = {"bell_ros2": launches}, max(k2_err, err)
+            launches, err = phase_host_bell(E, A, B, C, E_b)
+            k2_launches.update(launches)
+            k2_err = max(k2_err, err)
+            del E_b  # the Newton paths' peak memory is their own
             phase_newton_small()
-            k1_launches["gare_newton"] = phase_newton_full(E, A, B, C, dev, args.newton_capacity)
+            launches, err = checked(f"[n={N_FULL} newton]", "K1", lambda: phase_newton_full(
+                E, A, B, C, dev, args.newton_capacity))
+            k1_launches["gare_newton"], k1_err = launches, max(k1_err, err)
+            phase_host_small()
+            phase_complex()
+            launches, err = phase_host_full(E, A, B, C, dev)
+            k1_launches.update(launches)
+            k1_err = max(k1_err, err)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if not args.newton_only:
+    if not (args.newton_only or args.host_only):
         key1, key2 = ("mmT", "float64", 48), ("mm", "float64", 48)
         # K1's time is the cold one: its operands are not in the L2, as its
         # bound assumes.

@@ -1,9 +1,11 @@
-"""Build port objects from the JAX package's arrays, given as numpy arrays.
+"""Build port objects from the JAX package's arrays, given as numpy arrays,
+and port configs from the JAX package's configs.
 
-Lets a test feed both packages identical operators, factors and
+Lets a test feed both packages identical operators, factors, problems,
 precomputed shift tables (so, for example, block-inverse rounding is not
-compared twice).  Never imports JAX: callers pass ``np.asarray(...)`` of the
-JAX leaves, and static fields as plain Python values.
+compared twice) and algorithm configs.  Never imports JAX: callers pass
+``np.asarray(...)`` of the JAX leaves and static fields as plain Python
+values; `config_from` reads a config's fields by name.
 """
 
 from __future__ import annotations
@@ -12,10 +14,12 @@ import numpy as np
 import torch
 
 from .lowrank import LowRank
+from .models import problems, shifts
 from .models.compiled import DiaShiftOps, SparseShiftOps
-from .models.problems import GAREProblem
-from .ops.blocklinear import Krylov
+from .models.problems import GALEProblem, GAREProblem, GDREProblem
+from .ops.blocklinear import Backslash, Krylov, ShermanMorrisonWoodbury
 from .ops.dia import DiaOp
+from .ops.operators import DenseOp
 from .ops.sparse import BellOp
 
 
@@ -36,12 +40,38 @@ def lowrank_from_numpy(L, D, k, device=None) -> LowRank:
     return LowRank(L=_t(L, device), D=_t(D, device), k=int(k))
 
 
-def gare_problem_from_numpy(E: dict, A: dict, G, Q, device=None) -> GAREProblem:
-    """`GAREProblem` on banded operators: ``E`` and ``A`` are the keyword
-    arguments of `dia_op_from_numpy` (the ``DiaOp`` storage), ``G`` and
-    ``Q`` the ``(L, D, k)`` of the low-rank factors."""
-    return GAREProblem(dia_op_from_numpy(**E, device=device),
-                       dia_op_from_numpy(**A, device=device),
+def dense_op_from_numpy(M, device=None) -> DenseOp:
+    """`DenseOp` from a dense matrix."""
+    return DenseOp(_t(M, device))
+
+
+def _op(spec, device):
+    """An operator from its leaves: a dict of `dia_op_from_numpy` keywords
+    (it has ``offsets``) or of `bell_op_from_numpy` keywords (it has
+    ``cols``), or a dense matrix."""
+    if isinstance(spec, dict):
+        make = dia_op_from_numpy if "offsets" in spec else bell_op_from_numpy
+        return make(**spec, device=device)
+    return dense_op_from_numpy(spec, device)
+
+
+def gale_problem_from_numpy(E, A, C, device=None) -> GALEProblem:
+    """`GALEProblem`: ``E`` and ``A`` as `_op` takes them, ``C`` the
+    ``(L, D, k)`` of the low-rank right-hand side."""
+    return GALEProblem(_op(E, device), _op(A, device), lowrank_from_numpy(*C, device=device))
+
+
+def gdre_problem_from_numpy(E, A, B, C, X0, tspan, device=None) -> GDREProblem:
+    """`GDREProblem`: ``E`` and ``A`` as `_op` takes them, ``X0`` the
+    ``(L, D, k)`` of the low-rank initial value."""
+    return GDREProblem(_op(E, device), _op(A, device), _t(B, device), _t(C, device),
+                       lowrank_from_numpy(*X0, device=device), tspan)
+
+
+def gare_problem_from_numpy(E, A, G, Q, device=None) -> GAREProblem:
+    """`GAREProblem`: ``E`` and ``A`` as `_op` takes them, ``G`` and ``Q``
+    the ``(L, D, k)`` of the low-rank factors."""
+    return GAREProblem(_op(E, device), _op(A, device),
                        lowrank_from_numpy(*G, device=device),
                        lowrank_from_numpy(*Q, device=device))
 
@@ -52,7 +82,62 @@ def krylov_from(cfg) -> Krylov | None:
     if cfg is None:
         return None
     return Krylov(method=cfg.method, tol=float(cfg.tol), atol=float(cfg.atol),
-                  maxiter=int(cfg.maxiter), negate=bool(cfg.negate))
+                  maxiter=int(cfg.maxiter), restart=int(cfg.restart),
+                  preconditioner=cfg.preconditioner, negate=bool(cfg.negate),
+                  solve_dtype=cfg.solve_dtype, refine_iters=int(cfg.refine_iters))
+
+
+_FORCING = {"quadratic_forcing": problems.quadratic_forcing,
+            "superlinear_forcing": problems.superlinear_forcing}
+
+
+def config_from(cfg):
+    """The port's config for one of the JAX package's (or ``None``), read
+    field by field; dispatches on the class name: `ADI`, `Newton`, `Ros1`,
+    `Ros2`, the four shift strategies, `Krylov`, `ShermanMorrisonWoodbury`
+    and `Backslash`.  A strategy's list of precomputed shift values becomes
+    a tuple of Python ``complex``; the named forcing functions become the
+    port's."""
+    if cfg is None:
+        return None
+    name = type(cfg).__name__
+    if name == "ADI":
+        return problems.ADI(
+            maxiters=cfg.maxiters, reltol=cfg.reltol, abstol=cfg.abstol,
+            shifts=config_from(cfg.shifts), ignore_initial_guess=cfg.ignore_initial_guess,
+            inner_alg=config_from(cfg.inner_alg),
+            compression_interval=cfg.compression_interval, compression=cfg.compression,
+            warn_convergence=cfg.warn_convergence, capacity=cfg.capacity)
+    if name == "Newton":
+        forcing = _FORCING.get(getattr(cfg.inexact_forcing, "__name__", None),
+                               cfg.inexact_forcing)
+        return problems.Newton(
+            inner_alg=config_from(cfg.inner_alg), maxiters=cfg.maxiters,
+            reltol=cfg.reltol, abstol=cfg.abstol, inexact=cfg.inexact,
+            inexact_hybrid=cfg.inexact_hybrid, inexact_forcing=forcing,
+            linesearch=cfg.linesearch)
+    if name in ("Ros1", "Ros2"):
+        return getattr(problems, name)(inner_alg=config_from(cfg.inner_alg))
+    if name == "Projection":
+        return shifts.Projection(cfg.n_history)
+    if name == "Heuristic":
+        return shifts.Heuristic(cfg.nshifts, cfg.kp, cfg.km, alg_E=config_from(cfg.alg_E),
+                                alg_A=config_from(cfg.alg_A))
+    if name == "Cyclic":
+        inner = cfg.inner
+        if type(inner).__name__ in ("Projection", "Heuristic", "Cyclic", "Wrapped"):
+            return shifts.Cyclic(config_from(inner))
+        return shifts.Cyclic(tuple(complex(v) for v in np.asarray(inner).ravel()))
+    if name == "Wrapped":
+        return shifts.Wrapped(cfg.func, config_from(cfg.inner))
+    if name == "Krylov":
+        return krylov_from(cfg)
+    if name == "ShermanMorrisonWoodbury":
+        return ShermanMorrisonWoodbury(outer=config_from(cfg.outer),
+                                       inner=config_from(cfg.inner))
+    if name == "Backslash":
+        return Backslash()
+    raise TypeError(f"no port config for {cfg!r}")
 
 
 def dia_shift_ops_from_numpy(data, data_t, prec_inv, offsets, n, nnz, cfg,

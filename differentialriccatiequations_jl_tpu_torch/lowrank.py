@@ -42,6 +42,14 @@ class LowRank:
         """Buffer width (storage capacity)."""
         return self.L.shape[1]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.L.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.L.device
+
     def to_dense(self) -> torch.Tensor:
         return lr_to_dense(self)
 
@@ -91,6 +99,10 @@ def lr_scale(alpha: float, X: LowRank) -> LowRank:
     return LowRank(L=X.L, D=alpha * X.D, k=X.k)
 
 
+def lr_neg(X: LowRank) -> LowRank:
+    return lr_scale(-1.0, X)
+
+
 def lr_with_capacity(X: LowRank, r_new: int) -> LowRank:
     """Return ``X`` with the buffer grown/shrunk to width ``r_new``.
 
@@ -136,6 +148,20 @@ def lr_add(X: LowRank, Y: LowRank, r_out: int | None = None) -> LowRank:
     return LowRank(L=L, D=D, k=min(Xb.k + Yb.k, r_out))
 
 
+def lr_sub(X: LowRank, Y: LowRank, r_out: int | None = None) -> LowRank:
+    return lr_add(X, lr_neg(Y), r_out=r_out)
+
+
+def lr_concat_terms(terms, r_out: int | None = None) -> LowRank:
+    """Concatenate several factorizations into one fresh sum."""
+    acc = terms[0]
+    if r_out is not None:
+        acc = lr_with_capacity(acc, r_out)
+    for t in terms[1:]:
+        acc = lr_add(acc, t, r_out=acc.r if r_out is None else r_out)
+    return acc
+
+
 def lr_to_dense(X: LowRank) -> torch.Tensor:
     """Materialize the ``n × n`` matrix (testing only)."""
     return X.L @ X.D @ X.L.T
@@ -146,6 +172,18 @@ def lr_norm(X: LowRank) -> torch.Tensor:
     ``‖L D Lᵀ‖²_F = tr((D·LᵀL)²)``.  Padded zero columns contribute nothing."""
     DM = X.D @ (X.L.T @ X.L)
     return torch.sqrt(torch.clamp(torch.trace(DM @ DM), min=0.0))
+
+
+def lr_dot(X: LowRank, Y: LowRank) -> torch.Tensor:
+    """Frobenius inner product ``tr(X Y) = tr(D₁ M D₂ Mᵀ)`` with the small
+    ``M = L₁ᵀL₂``; padded columns contribute zeros."""
+    M = X.L.T @ Y.L
+    return torch.trace(X.D @ M @ Y.D @ M.T)
+
+
+def lr_rank(X: LowRank) -> int:
+    """Active storage rank."""
+    return X.k
 
 
 def _robust_eigh(S: torch.Tensor):
@@ -226,3 +264,17 @@ def lr_compress(X: LowRank, r_out: int | None = None,
         D_new = D_new[:r_out, :r_out]
         k_new = min(k_new, r_out)
     return LowRank(L=L_new, D=D_new, k=k_new)
+
+
+def round_up(k: int, bucket: int = 16) -> int:
+    """Bucket a storage width (the JAX package's recompile guard; here it
+    keeps the widths, and so the arithmetic, the same as there)."""
+    return max(bucket, -(-int(k) // bucket) * bucket)
+
+
+def lr_slice_active(X: LowRank, bucket: int = 16) -> LowRank:
+    """Shrink the buffer to the (bucketed) active rank, so that wide
+    assemblies downstream scale with the numerical rank and not with the
+    storage capacity.  Compressed factorizations keep their active columns
+    in front, so this is a slice."""
+    return lr_with_capacity(X, min(X.r, round_up(max(X.k, 1), bucket)))

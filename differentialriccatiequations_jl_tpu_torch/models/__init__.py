@@ -1,1 +1,73 @@
-"""Solvers: residuals and the Ros1 step."""
+"""Solver dispatch: the `solve` / `init` verbs (port of the JAX package's
+``models/__init__.py``), and the solvers behind them.
+
+Ported branches: GALE with a low-rank right-hand side by the host ADI;
+low-rank GDRE by Ros1 and Ros2; GARE by Kleinman–Newton with an ADI inner
+solver.  The others raise `NotImplementedError` naming their ROADMAP item;
+a problem and algorithm that do not fit raise `TypeError` as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+from . import shifts
+from .adi import ADISolver, solve_gale_adi
+from .newton import solve_gare_newton
+from .problems import (
+    ADI, BartelsStewart, DRESolution, GALEProblem, GAREProblem, GDREProblem, GMRES,
+    Kronecker, Newton, Parareal, Ros1, Ros2, Ros3, Ros4, quadratic_forcing,
+    superlinear_forcing)
+from .residuals import residual
+from .rosenbrock_lowrank import (
+    feedback_K, solve_gdre_lowrank_ros1, solve_gdre_lowrank_ros2)
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def solve(prob, alg, **kwargs):
+    """``solve(prob, alg; kwargs...)`` — dispatch on problem, algorithm and
+    data (low-rank or dense)."""
+    if isinstance(prob, GALEProblem):
+        if isinstance(alg, ADI):
+            return solve_gale_adi(prob, alg, **kwargs)
+        if isinstance(alg, GMRES):
+            raise _not_ported("the GALE solver GMRES", 6)
+        if isinstance(alg, (BartelsStewart, Kronecker)):
+            raise _not_ported(f"the dense GALE solver {type(alg).__name__}", 7)
+        raise TypeError(f"no GALE solver for {alg!r}")
+    if isinstance(prob, GAREProblem):
+        if isinstance(alg, Newton):
+            return solve_gare_newton(prob, alg, **kwargs)
+        raise TypeError(f"no GARE solver for {alg!r}")
+    if isinstance(prob, GDREProblem):
+        if prob.is_lowrank:
+            if isinstance(alg, Parareal):
+                raise _not_ported("Parareal", 9)
+            if isinstance(alg, Ros1):
+                return solve_gdre_lowrank_ros1(prob, alg, **kwargs)
+            if isinstance(alg, Ros2):
+                return solve_gdre_lowrank_ros2(prob, alg, **kwargs)
+            raise TypeError(
+                f"low-rank GDRE supports Ros1/Ros2 (README.md:130-132), got {alg!r}")
+        if isinstance(alg, (Ros1, Ros2, Ros3, Ros4)):
+            raise _not_ported(f"the dense GDRE integrator {type(alg).__name__}", 7)
+        raise TypeError(f"no GDRE integrator for {alg!r}")
+    raise TypeError(f"no solver for problem {type(prob)}")
+
+
+def init(prob, alg, **kwargs):
+    """``init(prob, alg)`` — a resumable solver object (ADI on a GALE)."""
+    if isinstance(prob, GALEProblem) and isinstance(alg, ADI):
+        return ADISolver(prob, alg, **kwargs)
+    raise TypeError(f"init not supported for ({type(prob)}, {type(alg)})")
+
+
+__all__ = [
+    "GALEProblem", "GDREProblem", "GAREProblem", "DRESolution",
+    "ADI", "BartelsStewart", "GMRES", "Kronecker", "Newton", "Parareal",
+    "Ros1", "Ros2", "Ros3", "Ros4", "quadratic_forcing", "superlinear_forcing",
+    "residual", "solve", "init", "ADISolver", "solve_gale_adi", "solve_gare_newton",
+    "solve_gdre_lowrank_ros1", "solve_gdre_lowrank_ros2", "feedback_K", "shifts",
+]

@@ -46,6 +46,7 @@ from ..ops.dia import DiaOp, DiaPairOp
 from ..ops.operators import DenseOp, LowRankUpdateOp, lin_comb, lr_update, scale_op
 from ..ops.sparse import BellOp
 from ..utils.callbacks import notify
+from .adi import _in_dtype, _residual_norm
 from .problems import DRESolution
 from .residuals import residual_gale_lowrank, residual_gare_lowrank
 from .rosenbrock_lowrank import _ros2_rhs1, _ros2_rhs2, feedback_K, time_grid
@@ -121,8 +122,10 @@ def default_dia_krylov(dtype: torch.dtype, complex_shifts: bool) -> Krylov:
     complex shift buffers (complex-symmetric, not Hermitian)."""
     eps = float(torch.finfo(dtype).eps)
     if complex_shifts:
-        return Krylov(method="bicgstab", tol=10 * eps, maxiter=400, negate=False)
-    return Krylov(method="cg", tol=10 * eps, maxiter=400, negate=True)
+        return Krylov(method="bicgstab", tol=10 * eps, maxiter=400,
+                      preconditioner="block_jacobi", negate=False)
+    return Krylov(method="cg", tol=10 * eps, maxiter=400,
+                  preconditioner="block_jacobi", negate=True)
 
 
 def _pair_krylov(cfg: Krylov) -> Krylov:
@@ -265,7 +268,8 @@ def build_sparse_shift_ops(E: BellOp, A0: BellOp, shifts,
         raise ValueError("block-ELL shift operators take real shifts only")
     if krylov_cfg is None:
         eps = float(torch.finfo(E.dtype).eps)
-        krylov_cfg = Krylov(method="cg", tol=10 * eps, maxiter=400, negate=True)
+        krylov_cfg = Krylov(method="cg", tol=10 * eps, maxiter=400,
+                            preconditioner="block_jacobi", negate=True)
     At, Et = A0.adjoint(), E.adjoint()
     ns = shifts.shape[0]
     nb, K, bs, _ = At.data.shape
@@ -324,13 +328,6 @@ def _wrap_smw_pair(core, A, dtype):
                     torch.cat([Si, Sr], dim=1)], dim=0)
     return PairSMWSolver(base=core, AinvU_re=P, AinvU_im=Q, V=Vt,
                          schur=_small_dense_solver(S2))
-
-
-def _residual_norm(W: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-    """‖W T Wᵀ‖_F via the Gram form ``tr((T·WᵀW)²)`` (the JAX package's
-    ``models/adi.py::_residual_norm``)."""
-    TM = T @ (W.T @ W)
-    return torch.sqrt(torch.clamp(torch.trace(TM @ TM), min=0.0))
 
 
 def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
@@ -724,11 +721,6 @@ def solve_gdre_ros2_compiled(prob, *, dt: float, shifts, cfg: CompiledConfig,
 #: Host seconds that `solve_gare_newton_compiled` spent computing closed-loop
 #: Penzl shifts (the sparse LUs and Arnoldi runs on the host) in this process.
 shift_rebuild_seconds = 0.0
-
-
-def _in_dtype(x: float, dtype: torch.dtype) -> float:
-    """``x`` rounded to ``dtype`` (the JAX package's ``dtype.type(x)``)."""
-    return float(torch.tensor(x, dtype=dtype))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,17 +1,48 @@
-"""Problem and solution types (port of the part of the JAX package's
-``models/problems.py`` that the compiled sweeps use).
+"""Problem and algorithm types (port of the JAX package's
+``models/problems.py``).
 
-* `GDREProblem` — ``EᵀẊE = CᵀC + AᵀXE + EᵀXA − EᵀXBBᵀXE`` on ``tspan``,
-* `GAREProblem` — ``Q + AᵀXE + EᵀXA − EᵀXGXE = 0``,
-* `DRESolution` — the trajectory of states ``X`` and feedbacks ``K = BᵀXE``.
+* `GALEProblem`  — ``AᵀXE + EᵀXA = −C``,
+* `GDREProblem`  — ``EᵀẊE = CᵀC + AᵀXE + EᵀXA − EᵀXBBᵀXE`` on ``tspan``,
+* `GAREProblem`  — ``Q + AᵀXE + EᵀXA − EᵀXGXE = 0``,
+* `DRESolution`  — the trajectory of states ``X`` and feedbacks ``K = BᵀXE``.
+
+Algorithm configs are frozen (hashable) dataclasses with the JAX package's
+fields and defaults.  The low-rank or dense path is selected by the type of
+the data (`LowRank` or a dense tensor).  A problem's dense data follow its
+operators' device; the solvers run where the tensors are.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
 from ..lowrank import LowRank
 from ..ops.operators import as_operator
+
+
+def _on(x, op):
+    """``x`` as a tensor on the device of operator ``op``."""
+    return torch.as_tensor(x, device=getattr(op, "device", None))
+
+
+class GALEProblem:
+    """Generalized algebraic Lyapunov equation ``AᵀXE + EᵀXA = −C``."""
+
+    def __init__(self, E, A, C):
+        self.E = as_operator(E)
+        self.A = as_operator(A)
+        self.C = C  # LowRank or a dense tensor
+
+    @property
+    def n(self) -> int:
+        return self.E.shape[0]
+
+    @property
+    def is_lowrank(self) -> bool:
+        return isinstance(self.C, LowRank)
 
 
 class GDREProblem:
@@ -20,14 +51,18 @@ class GDREProblem:
     def __init__(self, E, A, B, C, X0, tspan):
         self.E = as_operator(E)
         self.A = as_operator(A)
-        self.B = torch.as_tensor(B)
-        self.C = torch.as_tensor(C)
-        self.X0 = X0  # LowRank
+        self.B = _on(B, self.E)
+        self.C = _on(C, self.E)
+        self.X0 = X0  # LowRank or dense (n, n)
         self.tspan = (float(tspan[0]), float(tspan[1]))
 
     @property
     def n(self) -> int:
         return self.B.shape[0]
+
+    @property
+    def is_lowrank(self) -> bool:
+        return isinstance(self.X0, LowRank)
 
 
 class GAREProblem:
@@ -54,3 +89,132 @@ class DRESolution:
         self.X = X
         self.K = K
         self.t = t
+
+
+# --- time integrators ----------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Ros1:
+    """First-order Rosenbrock (implicit Euler)."""
+
+    inner_alg: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Ros2:
+    """Second-order Rosenbrock."""
+
+    inner_alg: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Ros3:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Ros4:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Parareal:
+    """Parareal-in-time around the compiled Ros1 fine propagator (the JAX
+    package's ``models/parareal.py`` config).  The solver is not ported yet
+    (ROADMAP Queue 1 item 9): `solve` raises for it."""
+
+    slabs: int = 4
+    max_iters: int | None = None
+    reltol: float = 1e-8
+    plateau_factor: float | None = 0.5
+
+
+# --- Lyapunov solvers -----------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ADI:
+    """Low-rank ADI.  ``shifts`` is a strategy from `models.shifts`
+    (default ``Projection(2)``); ``inner_alg=None`` routes the shifted
+    solves by operator kind (dense LU, SMW, Krylov) through
+    `ops.shifted.default_inner_alg`."""
+
+    maxiters: int = 100
+    reltol: Optional[float] = None
+    abstol: Optional[float] = None
+    shifts: object = None  # default Projection(2), set in __post_init__
+    ignore_initial_guess: bool = False
+    inner_alg: Optional[object] = None
+    compression_interval: int = 10
+    compression: bool = True
+    warn_convergence: bool = True
+    capacity: Optional[int] = None  # storage width of X (auto if None)
+
+    def __post_init__(self):
+        if self.shifts is None:
+            from .shifts import Projection
+
+            object.__setattr__(self, "shifts", Projection(2))
+
+
+@dataclasses.dataclass(frozen=True)
+class BartelsStewart:
+    """Dense GALE solve (the sign-function solver).  Not ported yet
+    (ROADMAP Queue 1 item 7): `solve` raises for it."""
+
+    maxiters: int = 40
+    host: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GMRES:
+    """Matrix-valued (F)GMRES on the Lyapunov operator.  Not ported yet
+    (ROADMAP Queue 1 item 6): `solve` raises for it."""
+
+    maxiters: int = 3
+    maxrestarts: int = 0
+    reltol: Optional[float] = None
+    abstol: Optional[float] = None
+    ignore_initial_guess: bool = False
+    compression: bool = True
+    preconditioner: Optional[object] = None
+    warn_convergence: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Kronecker:
+    """Naive n² dense Kronecker solve, for tests.  Not ported yet (ROADMAP
+    Queue 1 item 7): `solve` raises for it."""
+
+
+# --- algebraic Riccati -----------------------------------------------------------
+
+
+def superlinear_forcing(i: int, _res) -> float:
+    """η = 1/(i³+1)."""
+    return 1.0 / (i**3 + 1)
+
+
+def quadratic_forcing(_i, residual_norm: float) -> float:
+    """η = min(0.1, 0.9‖res‖)."""
+    return min(0.1, 0.9 * float(residual_norm))
+
+
+@dataclasses.dataclass(frozen=True)
+class Newton:
+    """(Inexact) Kleinman–Newton with line search.  ``inner_alg`` comes
+    first, as in ``Newton(ADI(...))``; default ``ADI()``."""
+
+    inner_alg: object = None  # default ADI()
+    maxiters: int = 5
+    reltol: Optional[float] = None
+    abstol: Optional[float] = None
+    inexact: bool = True
+    inexact_hybrid: bool = True
+    inexact_forcing: object = quadratic_forcing
+    linesearch: bool = True
+
+    def __post_init__(self):
+        if self.inner_alg is None:
+            object.__setattr__(self, "inner_alg", ADI())

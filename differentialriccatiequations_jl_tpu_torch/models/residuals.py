@@ -1,5 +1,5 @@
-"""Low-rank GALE and GARE residuals (port of the low-rank part of the JAX
-package's ``models/residuals.py``).
+"""Low-rank GALE and GARE residuals and the `residual` dispatch (port of
+the low-rank part of the JAX package's ``models/residuals.py``).
 
 The residual never forms the n×n matrix: it assembles a factor
 ``R = [G  EᵀL  AᵀL]`` with a small block middle matrix and compresses
@@ -61,3 +61,22 @@ def residual_gare_lowrank(E, A, G: LowRank, Q: LowRank, X: LowRank,
     T[h + r:, h + r:] = -(BtLD.T @ Rinv @ BtLD)
     res = LowRank(L=R, D=T, k=min(Q.k + 2 * X.k, dim))
     return lr_compress(res, r_out=r_out)
+
+
+def residual(prob, X, **kw):
+    """The residual of ``X`` for a GALE or GARE problem, as a compressed
+    `LowRank`.  Only the low-rank forms are ported: a dense ``X`` or right-
+    hand side raises (ROADMAP Queue 1 item 7, the dense path)."""
+    from .problems import GALEProblem, GAREProblem
+
+    if isinstance(prob, GALEProblem):
+        if isinstance(X, LowRank) and isinstance(prob.C, LowRank):
+            return residual_gale_lowrank(prob.E, prob.A, prob.C, X, **kw)
+        raise NotImplementedError("the dense GALE residual is not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
+    if isinstance(prob, GAREProblem):
+        if isinstance(X, LowRank):
+            return residual_gare_lowrank(prob.E, prob.A, prob.G, prob.Q, X, **kw)
+        raise NotImplementedError("the dense GARE residual is not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
+    raise TypeError(f"no residual for problem type {type(prob)}")

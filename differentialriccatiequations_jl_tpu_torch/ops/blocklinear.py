@@ -1,9 +1,11 @@
 """Block linear solvers: ``A X = B`` with multiple right-hand sides.
 
-Port of the slice of the JAX package's ``ops/blocklinear.py`` that the
-compiled Ros1 step uses: preconditioned CG and BiCGStab over banded
-operators, dense LU for the small Schur complements, and the
-Sherman–Morrison–Woodbury wrappers (real and stacked-real pair forms).
+Port of the JAX package's ``ops/blocklinear.py``: the algorithm configs
+(`Backslash`, `ShermanMorrisonWoodbury`, `Krylov`), `prepare` (a factored
+solver for an operator under a config) and the prepared solvers —
+preconditioned CG and BiCGStab over sparse operators (diagonal or block
+Jacobi), dense LU (`torch.linalg.lu_factor`, cuSOLVER on the card), and
+the Sherman–Morrison–Woodbury wrappers (real and stacked-real pair forms).
 
 The Krylov iterations reproduce ``jax.scipy.sparse.linalg`` exactly (so
 iteration counts and results agree with the reference):
@@ -12,10 +14,14 @@ iteration counts and results agree with the reference):
 * the loop runs while ``‖r‖² > max(tol²‖b‖², atol²)`` and ``k < maxiter``;
 * BiCGStab keeps its ``exit_early`` select and stops on breakdown
   (``ρ = 0``, ``α = 0`` or ``ω = 0``);
-* the start ``x₀ = 0`` still costs one product ``A(x₀)``.
+* the start ``x₀ = 0`` still costs one product ``A(x₀)``;
+* complex iterates are tested on the real part of ``⟨r, r⟩`` (the
+  ``_vdot_real_tree`` of ``jax.scipy``), as CG's ``⟨p, Ap⟩`` and ``⟨r, z⟩``
+  are.
 
 Each iteration's convergence test reads one boolean back to the host
-(one sync per iteration); `krylov_iterations` counts them.
+(one sync per iteration); `krylov_iterations` counts them and
+`krylov_solves` the solves.
 """
 
 from __future__ import annotations
@@ -25,24 +31,67 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..utils.timers import timeit
+from .operators import DenseOp, LowRankUpdateOp, as_operator
+
 #: Krylov iterations run in this process — one host sync each.
 krylov_iterations = 0
+#: Krylov solves run in this process.
+krylov_solves = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockLinearProblem:
+    """``A X = B``."""
+
+    A: object
+    B: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Backslash:
+    """Direct dense solve through an LU factorization on the tensors'
+    device (cuSOLVER on the card)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ShermanMorrisonWoodbury:
+    """SMW for `LowRankUpdateOp` coefficients: ``(A + α⁻¹UV)X = B``.
+
+    ``outer`` solves against the base operator, ``inner`` the small dense
+    Schur complement.
+    """
+
+    outer: object = Backslash()
+    inner: object = Backslash()
 
 
 @dataclasses.dataclass(frozen=True)
 class Krylov:
-    """Matrix-free iterative solve, block-Jacobi preconditioned.
+    """Matrix-free iterative solve (for sparse operators).
 
-    method: "bicgstab" (general) or "cg" (symmetric definite).
+    method: "bicgstab" (general) or "cg" (symmetric definite); "gmres" is
+    not ported (ROADMAP Queue 1 item 6).
+    preconditioner: "jacobi" (diagonal) or "block_jacobi" (explicit
+    inverses of the 128×128 diagonal blocks, one batched product per
+    application).  The compiled paths build their block-Jacobi solvers
+    themselves, whatever this field says.
     negate: solve ``(−A)X = −B`` — lets CG run on symmetric *negative*
     definite shifted coefficients ``Aᵀ + μEᵀ`` (A stable, μ < 0).
+    solve_dtype, refine_iters: the mixed-precision core with iterative
+    refinement; not ported (ROADMAP Queue 1 item 4), a ``solve_dtype``
+    raises.
     """
 
     method: str = "bicgstab"
     tol: float = 1e-12
     atol: float = 0.0
     maxiter: int = 1000
+    restart: int = 40  # gmres only
+    preconditioner: str = "jacobi"
     negate: bool = False
+    solve_dtype: str | None = None
+    refine_iters: int = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +100,10 @@ class DenseLUSolver:
     piv: torch.Tensor
 
     def solve(self, B: torch.Tensor) -> torch.Tensor:
-        return torch.linalg.lu_solve(self.lu, self.piv, B.to(self.lu.dtype))
+        B = B.to(self.lu.dtype)
+        if B.dim() == 1:
+            return torch.linalg.lu_solve(self.lu, self.piv, B[:, None])[:, 0]
+        return torch.linalg.lu_solve(self.lu, self.piv, B)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +116,10 @@ class SMWSolver:
     schur: object  # prepared solver for S = αI + V A⁻¹U
 
     def solve(self, B: torch.Tensor) -> torch.Tensor:
-        AinvB = self.base.solve(B)
-        t = self.schur.solve(self.V @ AinvB)
-        return AinvB - self.AinvU @ t
+        with timeit("smw.solve"):
+            AinvB = self.base.solve(B)
+            t = self.schur.solve(self.V @ AinvB)
+            return AinvB - self.AinvU @ t
 
 
 def _block_apply(inv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -107,10 +160,26 @@ class PairBlockPrec:
             _block_apply_t(self.im, xr) + _block_apply_t(self.re, xi),
         ])
 
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        q = x.shape[1] // 2
+        xr, xi = x[:, :q], x[:, q:]
+        return torch.cat([
+            _block_apply(self.re, xr) - _block_apply(self.im, xi),
+            _block_apply(self.im, xr) + _block_apply(self.re, xi),
+        ], dim=1)
+
 
 def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Inner product of two blocks taken as one vector each."""
+    """Inner product ``⟨x, y⟩`` (``x`` conjugated) of two blocks taken as
+    one vector each."""
     return torch.vdot(x.reshape(-1), y.reshape(-1))
+
+
+def _vdot_real(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Real part of ``⟨x, y⟩``: ``⟨Re x, Re y⟩ + ⟨Im x, Im y⟩``."""
+    if not (x.is_complex() or y.is_complex()):
+        return _vdot(x, y)
+    return _vdot(x.real, y.real) + _vdot(x.imag, y.imag)
 
 
 def _continue(flag: torch.Tensor) -> bool:
@@ -123,19 +192,19 @@ def _continue(flag: torch.Tensor) -> bool:
 
 def _cg(A, b, *, maxiter, tol, atol, M):
     """Preconditioned CG as ``jax.scipy.sparse.linalg.cg``."""
-    atol2 = torch.clamp(tol * tol * _vdot(b, b), min=atol * atol)
+    atol2 = torch.clamp(tol * tol * _vdot_real(b, b), min=atol * atol)
     x = torch.zeros_like(b)
     r = b - A(x)
     z = p = M(r)
-    gamma = _vdot(r, z)
+    gamma = _vdot_real(r, z).to(p.dtype)
     k = 0
-    while k < maxiter and _continue(_vdot(r, r) > atol2):
+    while k < maxiter and _continue(_vdot_real(r, r) > atol2):
         Ap = A(p)
-        alpha = gamma / _vdot(p, Ap)
+        alpha = gamma / _vdot_real(p, Ap).to(p.dtype)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        gamma_ = _vdot(r, z)
+        gamma_ = _vdot_real(r, z).to(p.dtype)
         p = z + (gamma_ / gamma) * p
         gamma = gamma_
         k += 1
@@ -144,7 +213,7 @@ def _cg(A, b, *, maxiter, tol, atol, M):
 
 def _bicgstab(A, b, *, maxiter, tol, atol, M):
     """Preconditioned BiCGStab as ``jax.scipy.sparse.linalg.bicgstab``."""
-    atol2 = torch.clamp(tol * tol * _vdot(b, b), min=atol * atol)
+    atol2 = torch.clamp(tol * tol * _vdot_real(b, b), min=atol * atol)
     x = torch.zeros_like(b)
     r = b - A(x)
     rhat, p, q = r, r, r
@@ -152,7 +221,7 @@ def _bicgstab(A, b, *, maxiter, tol, atol, M):
     alpha = omega = rho = one
     broken = torch.zeros((), dtype=torch.bool, device=b.device)
     k = 0
-    while k < maxiter and _continue((_vdot(r, r) > atol2) & ~broken):
+    while k < maxiter and _continue((_vdot_real(r, r) > atol2) & ~broken):
         rho_ = _vdot(rhat, r)
         beta = rho_ / rho * alpha / omega
         p = r + beta * (p - omega * q)
@@ -160,7 +229,7 @@ def _bicgstab(A, b, *, maxiter, tol, atol, M):
         q = A(phat)
         alpha = rho_ / _vdot(rhat, q)
         s = r - alpha * q
-        exit_early = _vdot(s, s) < atol2
+        exit_early = _vdot_real(s, s) < atol2
         shat = M(s)
         t = A(shat)
         omega = _vdot(t, s) / _vdot(t, t)
@@ -176,20 +245,31 @@ def _bicgstab(A, b, *, maxiter, tol, atol, M):
 @dataclasses.dataclass(frozen=True)
 class KrylovSolver:
     op: object
-    prec: object  # block-Jacobi inverses (nb, bs, bs), or a PairBlockPrec
-    #               (stacked-real complex blocks) for a DiaPairOp
+    prec: object  # Jacobi: the diagonal's reciprocal, padded with ones to
+    #               the operator's storage length N; block-Jacobi inverses
+    #               (nb, bs, bs); or a PairBlockPrec (stacked-real complex
+    #               blocks) for a DiaPairOp
     cfg: Krylov
 
     def _apply_prec(self, x: torch.Tensor) -> torch.Tensor:
-        return _block_apply(self.prec, x)
+        if isinstance(self.prec, PairBlockPrec):
+            return self.prec.apply(x)
+        if self.prec.dim() == 3:
+            return _block_apply(self.prec, x)
+        pinv = self.prec[:x.shape[0]]
+        return pinv[:, None] * x if x.dim() == 2 else pinv * x
 
     def _apply_prec_t(self, xt: torch.Tensor) -> torch.Tensor:
         """Preconditioner in lane-major ``(q, N)`` layout."""
         if isinstance(self.prec, PairBlockPrec):
             return self.prec.apply_t(xt)
-        return _block_apply_t(self.prec, xt)
+        if self.prec.dim() == 3:
+            return _block_apply_t(self.prec, xt)
+        return self.prec[None, :] * xt
 
     def solve(self, B: torch.Tensor) -> torch.Tensor:
+        global krylov_solves
+        krylov_solves += 1
         cfg = self.cfg
         # Normalize the RHS (scale invariance of the stopping rule).
         nrm = torch.linalg.norm(B)
@@ -219,7 +299,7 @@ class KrylovSolver:
         elif cfg.method == "bicgstab":
             iterate = _bicgstab
         else:
-            raise ValueError(f"Krylov method {cfg.method!r} is not ported")
+            raise _unported_method(cfg.method)
         x = iterate(mv, B, maxiter=cfg.maxiter, tol=cfg.tol, atol=cfg.atol,
                     M=precond)
         if lane_major:
@@ -263,3 +343,62 @@ def block_jacobi_inverses(blocks: torch.Tensor) -> torch.Tensor:
     if not inv.is_complex():
         inv = 0.5 * (inv + inv.transpose(-1, -2))
     return inv
+
+
+def _unported_method(method: str) -> Exception:
+    if method == "gmres":
+        return NotImplementedError(
+            "Krylov(method='gmres') is not ported yet (ROADMAP Queue 1 item 6)")
+    return ValueError(f"unknown Krylov method {method!r}")
+
+
+def _extract_diag(op) -> torch.Tensor:
+    if isinstance(op, LowRankUpdateOp):
+        base = _extract_diag(op.A)
+        return base + (1.0 / op.alpha) * torch.einsum("ij,ji->i", op.U, op.V)
+    if isinstance(op, DenseOp):
+        return torch.diagonal(op.M)
+    return op.diag()  # sparse operators implement .diag()
+
+
+def prepare(A, alg) -> object:
+    """A prepared (factored) solver for operator ``A`` under ``alg``."""
+    A = as_operator(A)
+    if isinstance(alg, Backslash):
+        if isinstance(A, LowRankUpdateOp):
+            # A direct solve of a lazy update would materialize it; SMW.
+            return prepare(A, ShermanMorrisonWoodbury())
+        lu, piv = torch.linalg.lu_factor(A.to_dense())
+        return DenseLUSolver(lu=lu, piv=piv)
+    if isinstance(alg, ShermanMorrisonWoodbury):
+        if not isinstance(A, LowRankUpdateOp):
+            raise TypeError("SMW requires a LowRankUpdateOp coefficient")
+        base = prepare(A.A, alg.outer)
+        AinvU = base.solve(A.U)
+        m = A.U.shape[1]
+        S = (A.alpha * torch.eye(m, dtype=AinvU.dtype, device=AinvU.device)
+             + A.V @ AinvU)
+        return SMWSolver(base=base, AinvU=AinvU, V=A.V,
+                         schur=prepare(DenseOp(S), alg.inner))
+    if isinstance(alg, Krylov):
+        if alg.solve_dtype is not None:
+            raise NotImplementedError(
+                "Krylov(solve_dtype=...), the mixed-precision core with "
+                "iterative refinement, is not ported yet (ROADMAP Queue 1 "
+                "item 4)")
+        if alg.method not in ("cg", "bicgstab"):
+            raise _unported_method(alg.method)
+        if alg.preconditioner == "block_jacobi" and hasattr(A, "diag_blocks"):
+            prec = block_jacobi_inverses(A.diag_blocks())
+        else:
+            prec = 1.0 / _extract_diag(A)
+            pad = getattr(A, "N", prec.shape[0]) - prec.shape[0]
+            if pad > 0:  # padding rows of lane-major operands act as I
+                prec = torch.cat([prec, prec.new_ones(pad)])
+        return KrylovSolver(op=A, prec=prec, cfg=alg)
+    raise TypeError(f"unknown block linear algorithm {alg!r}")
+
+
+def solve_blocklinear(A, B: torch.Tensor, alg=Backslash()) -> torch.Tensor:
+    """One-shot ``solve(BlockLinearProblem(A, B), alg)``."""
+    return prepare(A, alg).solve(B)

@@ -9,7 +9,8 @@ vector per structural diagonal:
 Transposes use a pre-shifted copy ``data_t[d, i] = data[d, i - off_d]`` with
 negated offsets, so ``AᵀX`` runs through the same product.  Every product
 goes through kernel K1 (`kernels.dia_spmm`): on a CUDA tensor in f32 and
-f64 alike, on a CPU tensor through its plain version.
+f64 alike, complex operators and operands in real arithmetic
+(`kernels.complex_route`), on a CPU tensor through its plain version.
 """
 
 from __future__ import annotations
@@ -20,11 +21,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import complex_route
 from ..kernels import dia_spmm as k1
 
 
 @dataclasses.dataclass(frozen=True)
-class DiaOp:
+class DiaOp(complex_route.SplitStorage):
     """Banded sparse matrix in diagonal storage.
 
     ``data``/``data_t`` may be padded beyond ``n`` columns; padded entries
@@ -41,6 +43,10 @@ class DiaOp:
     n: int
     nnz_: int  # structural nonzeros (csr-equivalent), set at construction
     symmetric: bool | None = None
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
 
     @property
     def dtype(self):
@@ -89,19 +95,21 @@ class DiaOp:
         return blocks
 
     def mm(self, X: torch.Tensor) -> torch.Tensor:
-        return _dia_mm(self.data, self.offsets, X, self.n)
+        return _dia_mm(self, X, t=False)
 
     def tmm(self, X: torch.Tensor) -> torch.Tensor:
-        return _dia_mm(self.data_t, tuple(-o for o in self.offsets), X, self.n)
+        return _dia_mm(self, X, t=True)
 
     def mmT(self, Xt: torch.Tensor) -> torch.Tensor:
         """Lane-major SpMM ``(A @ Xtᵀ)ᵀ`` on a ``(q, N)`` operand; the
         Krylov solvers keep their whole state in this layout."""
-        return k1.dia_mm_t(self.data, self.offsets, Xt)
+        return self._product(lambda d, x: k1.dia_mm_t(d, self.offsets, x), Xt, dim=0)
 
     def mmT_axpby(self, Xt: torch.Tensor, Z: torch.Tensor, alpha, beta) -> torch.Tensor:
         """``α·(A @ Xtᵀ)ᵀ + β·Z`` in lane-major layout, the epilogue fused
-        into the kernel."""
+        into the kernel (after it, on the complex route)."""
+        if self._by_parts(Xt):
+            return alpha * self.mmT(Xt) + beta * Z
         return k1.dia_mm_t(self.data, self.offsets, Xt, Z=Z, alpha=alpha,
                            beta=beta)
 
@@ -135,14 +143,16 @@ class DiaOp:
         return M
 
 
-def _dia_mm(data, offsets, X, n):
+def _dia_mm(op: DiaOp, X, t: bool):
+    """``A @ X`` (``Aᵀ @ X`` if ``t``) for ``X: (n, q)``, ``(N, q)`` or
+    ``(n,)``."""
     squeeze = X.dim() == 1
     if squeeze:
         X = X[:, None]
-    N = data.shape[1]
-    if X.shape[0] != N:
-        X = F.pad(X, (0, 0, 0, N - X.shape[0]))
-    Y = k1.dia_mm(data, offsets, X)[:n]
+    if X.shape[0] != op.N:
+        X = F.pad(X, (0, 0, 0, op.N - X.shape[0]))
+    offsets = tuple(-o for o in op.offsets) if t else op.offsets
+    Y = op._product(lambda d, x: k1.dia_mm(d, offsets, x), X, dim=1, t=t)[:op.n]
     return Y[:, 0] if squeeze else Y
 
 

@@ -6,7 +6,9 @@ operator meets:
 
 * ``op.mm(X)``  — ``A @ X``,
 * ``op.tmm(X)`` — ``Aᵀ @ X``,
-* ``op.to_dense()``.
+* ``op.to_dense()``,
+* ``restrict(op, Q)`` — ``Qᵀ A Q`` (the Galerkin projection of the
+  projection shifts).
 """
 
 from __future__ import annotations
@@ -24,6 +26,22 @@ class DenseOp:
     """Dense n×n operator."""
 
     M: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.M.shape)
+
+    @property
+    def dtype(self):
+        return self.M.dtype
+
+    @property
+    def device(self):
+        return self.M.device
+
+    @property
+    def nnz(self) -> int:
+        return self.M.shape[0] * self.M.shape[1]
 
     def mm(self, X: torch.Tensor) -> torch.Tensor:
         return self.M @ X
@@ -49,6 +67,18 @@ class LowRankUpdateOp:
     U: torch.Tensor  # (n, m)
     V: torch.Tensor  # (m, n)
 
+    @property
+    def shape(self):
+        return self.A.shape
+
+    @property
+    def dtype(self):
+        return self.A.dtype
+
+    @property
+    def device(self):
+        return self.A.device
+
     def mm(self, X: torch.Tensor) -> torch.Tensor:
         return self.A.mm(X) + (1.0 / self.alpha) * (self.U @ (self.V @ X))
 
@@ -73,10 +103,25 @@ def lr_update(A, alpha, U: torch.Tensor, V: torch.Tensor) -> LowRankUpdateOp:
 
 
 def as_operator(A):
-    """Coerce a raw tensor to an operator; pass operators through."""
-    if hasattr(A, "mm"):
+    """Coerce a raw tensor or array to an operator; pass operators through."""
+    if hasattr(A, "mm") and not isinstance(A, torch.Tensor):
         return A
     return DenseOp(torch.as_tensor(A))
+
+
+def restrict(op, Q: torch.Tensor) -> torch.Tensor:
+    """Galerkin projection ``Qᵀ A Q`` (a small matrix)."""
+    if isinstance(op, LowRankUpdateOp):
+        core = restrict(op.A, Q)
+        return core + (1.0 / op.alpha) * ((Q.T @ op.U) @ (op.V @ Q))
+    return Q.T @ as_operator(op).mm(Q)
+
+
+def operator_nnz(op) -> int:
+    """Number of stored entries — the unit of nnz/s throughput."""
+    if isinstance(op, LowRankUpdateOp):
+        return operator_nnz(op.A) + op.U.numel() + op.V.numel()
+    return op.nnz
 
 
 def lin_comb(A, c, E):

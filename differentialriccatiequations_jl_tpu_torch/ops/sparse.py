@@ -10,7 +10,8 @@ column-block slots:
 Transposed products use an explicitly built transposed structure
 (``cols_t``, ``data_t``), so ``AᵀX`` runs through the same product.  Every
 product goes through kernel K2 (`kernels.bell_spmm`): on a CUDA tensor in
-f32 and f64 alike, on a CPU tensor through its plain version.  Operators
+f32 and f64 alike, complex operators and operands in real arithmetic
+(`kernels.complex_route`), on a CPU tensor through its plain version.  Operators
 built with `bell_pencil` share one block pattern, so ``Aᵀ + μEᵀ`` is a
 single data combine.  Construction runs on the host in numpy.
 """
@@ -23,10 +24,11 @@ import numpy as np
 import torch
 
 from ..kernels import bell_spmm as k2
+from ..kernels import complex_route
 
 
 @dataclasses.dataclass(frozen=True)
-class BellOp:
+class BellOp(complex_route.SplitStorage):
     """Block-ELL sparse matrix with an explicit transposed structure.
 
     ``cols_t``/``data_t`` may be ``None`` for an operator that is only
@@ -86,12 +88,12 @@ class BellOp:
         return blocks
 
     def mm(self, X: torch.Tensor) -> torch.Tensor:
-        return _bell_mm(self.cols, self.data, X, self.n)
+        return _bell_mm(self, X, t=False)
 
     def tmm(self, X: torch.Tensor) -> torch.Tensor:
         if self.data_t is None:
             raise ValueError("this BellOp stores no transposed structure")
-        return _bell_mm(self.cols_t, self.data_t, X, self.n)
+        return _bell_mm(self, X, t=True)
 
     def adjoint(self) -> "BellOp":
         return BellOp(cols=self.cols_t, data=self.data_t, cols_t=self.cols,
@@ -108,11 +110,13 @@ class BellOp:
         return M[:self.n, :self.n]
 
 
-def _bell_mm(cols, data, X, n):
+def _bell_mm(op: BellOp, X, t: bool):
+    """``A @ X`` (``Aᵀ @ X`` if ``t``) for ``X: (n, q)`` or ``(n,)``."""
     squeeze = X.dim() == 1
     if squeeze:
         X = X[:, None]
-    Y = k2.bell_mm(cols, data, X)[:n]
+    cols = op.cols_t if t else op.cols
+    Y = op._product(lambda d, x: k2.bell_mm(cols, d, x), X, dim=1, t=t)[:op.n]
     return Y[:, 0] if squeeze else Y
 
 

@@ -16,7 +16,13 @@ CUDA activities), and once more unprofiled.
   after the first closed-loop shift build: its rebuild gate, inner ADI and
   the next step's residual), as in `chip_smoke.py` phase 7.  A Newton step
   cannot be rerun from its state, so the solve runs twice, cut after step 2:
-  once unprofiled, once with the profiler on for the step.
+  once unprofiled, once with the profiler on for the step;
+* ``host``: the host ADI through the public API, `init(GALEProblem, ADI(
+  shifts=Cyclic(Heuristic(20, 30, 30)), maxiters=HOST_ITERS))` and
+  ``solve()`` on the DIA pencil, as in `chip_smoke.py` phase 10 cut to its
+  shift set-up and `HOST_ITERS` ADI iterations, with `utils.timers` on:
+  its sections (``shifts.arnoldi``, ``adi.shifted_solve``, ...) are
+  `torch.profiler` ranges, listed with their host times after the kernels.
 
 Prints, per path, the step's wall clock with and without the profiler, the
 summed device time of all kernels and copies and its share of the profiled
@@ -50,6 +56,7 @@ from differentialriccatiequations_jl_tpu_torch.models.compiled import (
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
 from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb, scale_op
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil
+from differentialriccatiequations_jl_tpu_torch.utils import timers
 from differentialriccatiequations_jl_tpu_torch.utils.callbacks import Observer
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
 
@@ -66,20 +73,26 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def report(name: str, step, out: Path | None) -> None:
+def report(name: str, step, out: Path | None, ranges: bool = False) -> None:
     _, first = timed(step)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_prof = timed(step)
     _, wall = timed(step)
     summarize(name, prof, f"first {first:.3f} s, profiled {wall_prof:.3f} s, "
-              f"unprofiled {wall:.3f} s", wall_prof, out)
+              f"unprofiled {wall:.3f} s", wall_prof, out, ranges)
 
 
-def summarize(name: str, prof, walls: str, wall_prof: float, out: Path | None) -> None:
+RANGES = re.compile(r"^(adi|shifts|smw|newton|gdre)\.")  # utils/timers sections
+
+
+def summarize(name: str, prof, walls: str, wall_prof: float, out: Path | None,
+              ranges: bool = False) -> None:
     """Device time by kernel, launches and host syncs of a finished profile."""
     by_kernel = defaultdict(lambda: [0.0, 0])
     launches = syncs = 0
     for e in prof.events():
+        if getattr(e, "is_user_annotation", False) or RANGES.match(e.name):
+            continue  # a `record_function` range mirrored on the device, no kernel
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name][0] += e.time_range.elapsed_us()
             by_kernel[e.name][1] += 1
@@ -97,6 +110,13 @@ def summarize(name: str, prof, walls: str, wall_prof: float, out: Path | None) -
              for k, (t, c) in rows]
     for line in lines[:12]:
         cs.log(f"[{name}]   {line}")
+    if ranges:  # the timer sections, as profiler ranges: host time and calls
+        table = [f"{a.cpu_time_total / 1e3:10.3f} ms host {a.count:7d} calls  {a.key}"
+                 for a in prof.key_averages()
+                 if RANGES.match(a.key) and a.device_type == torch.autograd.DeviceType.CPU]
+        for line in table:
+            cs.log(f"[{name}] range {line}")
+        lines += ["", "profiler ranges (utils/timers sections):"] + table
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
         (out / f"profile_{name}.txt").write_text("\n".join(lines) + "\n")
@@ -140,6 +160,25 @@ def report_newton(E, A, B, C, dev, out: Path | None) -> None:
               walls[1], out)
 
 
+HOST_ITERS = 6
+
+
+def report_host(E, A, B, C, dev, out: Path | None) -> None:
+    """The host-API GALE, cut to `HOST_ITERS` ADI iterations: first,
+    profiled, unprofiled; then the timer sections as profiler ranges."""
+    ops = dia_pencil(E, A, dtype=torch.float64, device=dev)
+    prob = cs.host_problem("gale", E, A, B, C, ops)
+    alg = cs.ADI(shifts=cs.HOST_SHIFTS, maxiters=HOST_ITERS, warn_convergence=False)
+    timers.reset()
+    timers.enable(True)
+    try:
+        report("host", lambda: cs.init(prob, alg).solve(), out, ranges=True)
+        for name, (sec, calls) in sorted(timers.report().items()):
+            cs.log(f"[host] timer {name}: {sec:.3f} s in {calls} calls (three solves)")
+    finally:
+        timers.enable(False)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_steps: no CUDA device", file=sys.stderr)
@@ -179,6 +218,9 @@ def main() -> int:
 
     # Newton step 1 (chip_smoke.py phase 7).
     report_newton(E, A, B, C, dev, out)
+
+    # The host-API GALE (chip_smoke.py phase 10, cut).
+    report_host(E, A, B, C, dev, out)
     return 0
 
 

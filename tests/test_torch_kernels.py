@@ -13,6 +13,7 @@ import torch
 
 from differentialriccatiequations_jl_tpu_torch import config, kernels
 from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
+from differentialriccatiequations_jl_tpu_torch.kernels import complex_route
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
 from differentialriccatiequations_jl_tpu_torch.ops import dia as tdia
 from differentialriccatiequations_jl_tpu_torch.ops import sparse as tsparse
@@ -108,6 +109,45 @@ def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+@pytest.mark.parametrize("case", ["complex op, complex X", "complex op, real X",
+                                  "real op, complex X"])
+@pytest.mark.parametrize("fmt", ["dia (N, q)", "dia (q, N)", "bell"])
+def test_complex_route_combines_real_products(fmt, case):
+    """The complex route's real launches and their combination, with each
+    "launch" taken by the plain version on the CPU: the result equals the
+    complex product, in two launches for a complex operator and one for a
+    real operator."""
+    rng = np.random.default_rng(11)
+    E, A, _, _ = rail_surrogate(300)
+    mu = -0.8 + 0.4j
+    real_op = case.startswith("real")
+    if fmt == "bell":
+        tE, tA = tsparse.bell_pencil(E, A, bs=64)
+        F = tE if real_op else tsparse.shifted_bell(tE, tA, mu)
+        data, plain, dim = F.data, lambda d, x: k2.bell_mm_plain(F.cols, d, x), 1
+    else:
+        tE, tA = tdia.dia_pencil(E, A)
+        F = tE if real_op else tdia.shifted_dia(tE, tA, mu)
+        if fmt == "dia (N, q)":
+            data, plain, dim = F.data, lambda d, x: k1.dia_mm_plain(d, F.offsets, x), 1
+        else:
+            data, plain, dim = F.data, lambda d, x: k1.dia_mm_t_plain(d, F.offsets, x), 0
+    shape = (7, 300) if dim == 0 else (300, 7)
+    X = torch.as_tensor(rng.standard_normal(shape))
+    if case.endswith("complex X"):
+        X = torch.complex(X, torch.as_tensor(rng.standard_normal(shape)))
+    calls = []
+
+    def launch(d, x):
+        assert not d.is_complex() and not x.is_complex() and d.is_contiguous()
+        calls.append(x.shape)
+        return plain(d, x)
+
+    got = complex_route.product(launch, complex_route.split(data), X, dim)
+    assert len(calls) == (1 if real_op else 2)
+    torch.testing.assert_close(got, plain(data, X), rtol=1e-13, atol=1e-13)
+
+
 # The card tests below cover the cases the kernels' tiling creates: n = 1357
 # (n % 128 = 77: a masked last block row, rows of X beyond n), widths from
 # one column to more than one 128-column chunk of K2, a column slice
@@ -139,8 +179,14 @@ def test_k1_matches_plain_on_card(dtype, tol):
     assert k1.launches == before + 4
     for got, ref in pairs:
         assert _rel(got, ref) <= tol
-    with pytest.raises(TypeError):
-        F.mmT(Xt.to(torch.complex128))
+    with pytest.raises(TypeError):  # K1 takes f32/f64 (and complex by parts)
+        F.mmT(Xt.to(torch.float16))
+    if dtype == torch.float64:  # a complex operand: one launch on [Re | Im]
+        Xc = torch.complex(Xt, Z)
+        before = k1.launches
+        got = F.mmT(Xc)
+        assert k1.launches == before + 1
+        assert _rel(got, k1.dia_mm_t_plain(F.data, F.offsets, Xc)) <= tol
 
 
 @pytest.mark.cuda
@@ -224,8 +270,14 @@ def test_k2_matches_plain_on_card(dtype, tol):
         refs = [k2.bell_mm_plain(F.cols, F.data, X), k2.bell_mm_plain(F.cols_t, F.data_t, Xv)]
         for y, ref in zip(got, refs):
             assert _rel(y, ref) <= tol
-    with pytest.raises(TypeError):
-        F.mm(X.to(torch.complex128))
+    with pytest.raises(TypeError):  # K2 takes f32/f64 (and complex by parts)
+        F.mm(X.to(torch.float16))
+    if dtype == torch.float64:  # a complex operand: one launch on [Re | Im]
+        Xc = torch.complex(X, X.flip(0))
+        before = k2.launches
+        got = F.mm(Xc)
+        assert k2.launches == before + 1
+        assert _rel(got, k2.bell_mm_plain(F.cols, F.data, Xc)) <= tol
 
 
 @pytest.mark.cuda
@@ -266,6 +318,47 @@ def test_k2_block_sizes_on_card(dtype, tol, bs):
         X = torch.as_tensor(rng.standard_normal((F.n, q)), dtype=dtype, device=dev)
         assert _rel(F.mm(X), k2.bell_mm_plain(F.cols, F.data, X)) <= tol
         assert _rel(F.tmm(X.T.contiguous().T), k2.bell_mm_plain(F.cols_t, F.data_t, X)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", (1, 7, 48))
+@pytest.mark.parametrize("n", (1357, 5177))
+def test_complex_products_on_card(n, q):
+    """Complex shifted operators and operands through K1 and K2 on the card
+    against their plain versions: two launches for a complex operator, one
+    for a real operator on a complex operand.  f64 sums in another order:
+    1e-13 relative to the largest entry."""
+    dev = _cuda()
+    E, A, _, _ = rail_surrogate(n)
+    mu = -1.0 + 0.5j
+    rng = np.random.default_rng(n + q)
+
+    def cplx(*shape):
+        return torch.complex(torch.as_tensor(rng.standard_normal(shape), device=dev),
+                             torch.as_tensor(rng.standard_normal(shape), device=dev))
+
+    X = cplx(n, q)
+    dE, dA = tdia.dia_pencil(E, A, dtype=torch.float64, device=dev)
+    F = tdia.shifted_dia(dE, dA, mu)
+    Et = dE.adjoint()
+    bE, bA = tsparse.bell_pencil(E, A, bs=128, dtype=torch.float64, device=dev)
+    G = tsparse.shifted_bell(bE, bA, mu)
+    cases = [
+        (k1, 2, lambda: F.mm(X), lambda: k1.dia_mm_plain(F.data, F.offsets, X)),
+        (k1, 2, lambda: F.mm(X.real), lambda: k1.dia_mm_plain(F.data, F.offsets, X.real)),
+        (k1, 2, lambda: F.mmT(X.T.contiguous()),
+         lambda: k1.dia_mm_t_plain(F.data, F.offsets, X.T.contiguous())),
+        (k1, 1, lambda: dE.tmm(X), lambda: k1.dia_mm_plain(Et.data, Et.offsets, X)),
+        (k2, 2, lambda: G.mm(X), lambda: k2.bell_mm_plain(G.cols, G.data, X)),
+        (k2, 2, lambda: G.mm(X.real), lambda: k2.bell_mm_plain(G.cols, G.data, X.real)),
+        (k2, 1, lambda: bE.tmm(X), lambda: k2.bell_mm_plain(bE.cols_t, bE.data_t, X)),
+    ]
+    for kern, nl, run, ref in cases:
+        before = kern.launches
+        got = run()
+        assert kern.launches == before + nl
+        torch.cuda.synchronize()
+        assert got.is_complex() and _rel(got, ref()) < 1e-13
 
 
 @pytest.mark.cuda

@@ -15,7 +15,8 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from differentialriccatiequations_jl_tpu_torch import convert  # noqa: E402
-from differentialriccatiequations_jl_tpu_torch import lowrank as tlr  # noqa: E402
+# The package's name `lowrank` is the constructor; the module by its path.
+tlr = importlib.import_module("differentialriccatiequations_jl_tpu_torch.lowrank")
 
 jlr = importlib.import_module("differentialriccatiequations_jl_tpu.lowrank")
 

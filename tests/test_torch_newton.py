@@ -23,7 +23,8 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from differentialriccatiequations_jl_tpu.ops import dia as jdia  # noqa: E402
-from differentialriccatiequations_jl_tpu_torch import lowrank as tlr  # noqa: E402
+# The package's name `lowrank` is the constructor; the module by its path.
+tlr = importlib.import_module("differentialriccatiequations_jl_tpu_torch.lowrank")
 from differentialriccatiequations_jl_tpu_torch.convert import gare_problem_from_numpy  # noqa: E402
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1  # noqa: E402
 from differentialriccatiequations_jl_tpu_torch.models import compiled as tcomp  # noqa: E402

@@ -40,10 +40,20 @@ both compilers started together, and then:
     the host ADI with Cyclic(Heuristic(20, 30, 30)), the low-rank GDRE by
     Ros1 (5 steps, Projection shifts on the closed loop) and the GARE by
     Newton with Cyclic(Heuristic(20, 30, 30)), counting K1 launches;
-11. drives the same GALE on the block-ELL pencil, counting K2 launches.
+11. drives the same GALE on the block-ELL pencil, counting K2 launches;
+12. runs the dense path on the card and on the CPU, small: the GALE by the
+    sign function and by the SciPy oracle (n=371), by Kronecker (n=40), the
+    dense GDRE by Ros1 to Ros4 (n=371, 5 steps): X and K within 1e-9;
+13. drives the dense path at full size on the n=5177 Rail surrogate: the
+    GALE by the sign function (residual at most 1e-10) and the dense GDRE by
+    Ros1 to Ros4 (5 steps each), printing each run's wall, peak memory,
+    split between the sign iterations and the replays, share of the f64
+    operations bound and ‖M_final + I‖_F/√n; then holds the low-rank Ros1
+    and Ros2 on the DIA pencil (through K1) and the compiled Ros2 sweep on
+    dense cores against the dense K within ‖K‖·n·eps·100 (rail.jl:52-70).
 
 Phases 10 and 11 hold each solver's residual against an independent
-evaluation (`residual`).  Every full-size path (phases 3, 5, 7, 10 and 11)
+evaluation (`residual`).  Every full-size path (phases 3, 5, 7, 10, 11 and 13)
 records the products it hands K1 and K2 (`ProductLog`: product, width,
 operand strides); after the run each kernel is held against its plain
 version at every one of them.
@@ -51,7 +61,8 @@ version at every one of them.
     python3 chip_smoke.py --newton-only [--newton-capacity 192]
 
 builds the kernels and runs phase 7 alone (at another capacity of ``X``);
-``--host-only`` builds them and runs phases 8 to 11.
+``--host-only`` builds them and runs phases 8 to 11, ``--dense-only``
+phases 12 and 13.
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -77,7 +88,8 @@ import scipy.sparse.linalg as spla
 import torch
 
 from differentialriccatiequations_jl_tpu_torch import (
-    ADI, GALEProblem, Newton, Ros1, Shifts, init, residual, solve)
+    ADI, BartelsStewart, GALEProblem, Kronecker, Newton, Ros1, Ros2, Ros3, Ros4, Shifts, init,
+    residual, solve)
 from differentialriccatiequations_jl_tpu_torch.entry import SHIFTS, entry
 from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
 from differentialriccatiequations_jl_tpu_torch.kernels import build
@@ -85,6 +97,7 @@ from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
 from differentialriccatiequations_jl_tpu_torch.lowrank import (
     LowRank, lowrank, lr_add, lr_compress, lr_norm, lr_scale, lr_with_capacity)
 from differentialriccatiequations_jl_tpu_torch.models import compiled
+from differentialriccatiequations_jl_tpu_torch.models import lyapunov_dense
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
     _ROS2_GAMMA, CompiledConfig, PerStepHeuristic, _residual_norm, build_dia_shift_ops,
     pair_encode_shifts, ros1_initial_residual, ros1_step_compiled,
@@ -97,11 +110,12 @@ from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_sh
 from differentialriccatiequations_jl_tpu_torch.ops import blocklinear
 from differentialriccatiequations_jl_tpu_torch.ops.shifted import shifted_operator
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil, shifted_dia
-from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb, op_astype
+from differentialriccatiequations_jl_tpu_torch.ops.operators import DenseOp, lin_comb, op_astype
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil, shifted_bell
 from differentialriccatiequations_jl_tpu_torch.utils import timers
 from differentialriccatiequations_jl_tpu_torch.utils.callbacks import Observer
-from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
+from differentialriccatiequations_jl_tpu_torch.utils.testmat import (
+    rail_surrogate, rail_surrogate_dense)
 
 CARD = "cuda"
 N_FULL = 79841
@@ -199,6 +213,38 @@ KRYLOV_REL_TOL = 0.02
 HOST_FLOOR_FACTOR = 100.0
 # Complex shifted products, kernel vs plain: f64 sums in another order.
 COMPLEX_REL_TOL = 1e-13
+# The dense path (phases 12-13): the GALE with right-hand side CᵀC by the
+# sign-function iteration (its fixed 40 steps, no early exit), and the
+# reference's dense GDRE, X0 = E⁻¹Cᵀ·0.01·C E⁻ᵀ on ROS1_TSPAN with dt =
+# ROS1_DT (5 steps), by Ros1 to Ros4.  n = 5177 is the reference CI
+# benchmark's Rail size (benchmarks.jl:40).
+N_DENSE = 5177
+N_KRON = 40
+DENSE_ALGS = (Ros1, Ros2, Ros3, Ros4)
+DENSE_STAGES = {Ros1: 1, Ros2: 2, Ros3: 3, Ros4: 4}
+# The n×n×n products with which each step builds its stage right-hand
+# sides (rosenbrock_dense.py), beside its sign iteration and replays.
+DENSE_STEP_GEMMS = {Ros1: 2, Ros2: 4, Ros3: 8, Ros4: 8}
+SIGN_ITERS = 40
+# Card vs CPU (phase 12): X and every K within 1e-9 relative (PERF.md §2).
+DENSE_REL_TOL = 1e-9
+# The GALE's relative residual ‖R‖_F / ‖CᵀC‖_F (tiny_random.jl:38).
+GALE_RES_TOL = 1e-10
+# ‖M_final + I‖_F/√n of every sign iteration: after convergence M = −I up
+# to rounding (about √n·eps for O(1) entries).
+SIGN_GAP_TOL = 1e-10
+# Orders 2-4 against Ros4 at the last stop.  At τ = 20 they part more than
+# at the JAX package's τ = 5 (its test holds 1e-4 there, and 5e-2 for
+# Ros1): on the n = 371 surrogate, against a τ = 2.5 Ros4, Ros3 is 9.8e-3
+# off at τ = 20 and 6.4e-5 at τ = 10, Ros2 2.2e-4 (CPU runs).
+ORDER_TOL = 5e-2
+# The compiled Ros2 sweep on dense cores (`ShiftLUs`): 16 Penzl shifts of
+# (E, γτA − E/2) as phase 5 builds them, at the dense sweeps' τ = 20.  Its
+# K against the dense Ros2's at n = 1357 on the CPU: 1.9e-6 at capacity 96
+# and r_res 48 (columns dropped), 2.1e-11 at 128 and 64, 1.1e-12 at 192 and
+# 64 and at 256 and 96 (the limit there is 3.0e-11).
+DENSE_SWEEP_CFG = CompiledConfig(maxiters=60, compression_interval=10, r_res=96)
+DENSE_SWEEP_CAPACITY = 256
 
 
 class PhaseError(RuntimeError):
@@ -1261,6 +1307,228 @@ def phase_host_bell(E, A, B, C, E_b):
     return {"gale_adi_host_bell": launches}, out["max_abs"]["K2"]
 
 
+def sign_flops(n: int, iters: int = SIGN_ITERS) -> float:
+    """Operations of one `sign_function_cache` (n³ terms): E's LU (2n³/3)
+    and M = A E⁻¹ (two triangular sweeps over n columns, 2n³), then per
+    iteration an LU and an inversion (2n³/3 + 2n³)."""
+    return (iters + 1) * (2.0 / 3.0 + 2.0) * n**3
+
+
+def replay_flops(n: int, iters: int = SIGN_ITERS) -> float:
+    """Operations of one `SignFunctionCache.solve`: C̃ = E⁻ᵀCE⁻¹ (two
+    solves over n columns, 4n³), then two GEMMs per iteration (4n³)."""
+    return (iters + 1) * 4.0 * n**3
+
+
+def dense_flops(alg, n: int, nsteps: int) -> float:
+    """Operations of ``nsteps`` dense Rosenbrock steps (n³ terms): per step
+    one cache, one replay per stage and the stage right-hand sides' GEMMs."""
+    return nsteps * (sign_flops(n) + DENSE_STAGES[alg] * replay_flops(n)
+                     + DENSE_STEP_GEMMS[alg] * 2.0 * n**3)
+
+
+class DenseSplit:
+    """The device time of a dense run's sign iterations and of its
+    C-replays, from CUDA events around each call of
+    `lyapunov_dense._sign_iteration` and `lyapunov_dense._replay_rhs`
+    (wrapped while the context is open; no host sync), and
+    ‖M_final + I‖_F/√n of each sign iteration."""
+
+    def __enter__(self):
+        self._orig = sign, replay = lyapunov_dense._sign_iteration, lyapunov_dense._replay_rhs
+        self.events = {"sign": [], "replay": []}
+        self.gaps = []
+
+        def timed(key, fn):
+            def run(*args):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args)
+                end.record()
+                self.events[key].append((start, end))
+                return out
+            return run
+
+        sign_timed = timed("sign", sign)
+
+        def sign_iteration(M, maxiters):
+            M_final, Minvs, cs_ = sign_timed(M, maxiters)
+            n = M.shape[0]
+            eye = torch.eye(n, dtype=M.dtype, device=M.device)
+            self.gaps.append(torch.linalg.norm(M_final + eye) / n**0.5)
+            return M_final, Minvs, cs_
+
+        lyapunov_dense._sign_iteration = sign_iteration
+        lyapunov_dense._replay_rhs = timed("replay", replay)
+        return self
+
+    def __exit__(self, *exc):
+        lyapunov_dense._sign_iteration, lyapunov_dense._replay_rhs = self._orig
+        return False
+
+    def seconds(self, key: str) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[key]) / 1e3
+
+
+def dense_gdre(n: int, dev):
+    """The reference's dense GDRE on the n Rail surrogate, f64 on ``dev``:
+    ``X0 = E⁻¹Cᵀ·0.01·C E⁻ᵀ``.  Returns (problem, E⁻¹Cᵀ)."""
+    E, A, B, C = rail_surrogate_dense(n, device=dev)
+    L0 = torch.linalg.solve(E, C.T)
+    X0 = L0 @ (0.01 * torch.eye(C.shape[0], dtype=torch.float64, device=dev)) @ L0.T
+    return GDREProblem(E, A, B, C, X0, ROS1_TSPAN), L0
+
+
+def rel_diff(a, b) -> float:
+    return float(torch.linalg.norm(a - b.to(a.device)) / torch.linalg.norm(b))
+
+
+def phase_dense_small():
+    """The dense path on the card and on the CPU, small (phase 12): the GALE
+    by the sign function and by the SciPy oracle (n=371), by Kronecker
+    (n=40), and the dense GDRE by Ros1 to Ros4 (n=371); X and every K
+    within `DENSE_REL_TOL`."""
+    outs = {}
+    for dev in (CARD, "cpu"):
+        E, A, B, C = rail_surrogate_dense(N_TINY, device=dev)
+        gale = GALEProblem(E, A, C.T @ C)
+        got = {name: (solve(gale, alg),) for name, alg in (
+            ("gale sign", BartelsStewart()), ("gale host", BartelsStewart(host=True)))}
+        for X, in got.values():
+            check(X.device == E.device, f"[dense n={N_TINY}] a GALE solve left {dev}")
+            res = float(torch.linalg.norm(residual(gale, X)) / torch.linalg.norm(gale.C))
+            check(res <= GALE_RES_TOL, f"[dense n={N_TINY}] GALE residual {res:.3e} on {dev}")
+        Ek, Ak, _, Ck = rail_surrogate_dense(N_KRON, device=dev)
+        got[f"gale kronecker n={N_KRON}"] = (solve(GALEProblem(Ek, Ak, Ck.T @ Ck), Kronecker()),)
+        prob, _ = dense_gdre(N_TINY, dev)
+        for alg in DENSE_ALGS:
+            sol = solve(prob, alg(), dt=ROS1_DT)
+            got[f"gdre {alg.__name__}"] = (sol.X[-1], *sol.K)
+        outs[dev] = got
+    for name, card in outs[CARD].items():
+        rels = [rel_diff(c.cpu(), h) for c, h in zip(card, outs["cpu"][name])]
+        log(f"[dense n={N_TINY}] {name} card vs CPU: X rel {rels[0]:.3e}"
+            + (f", K rel (max over {len(rels) - 1} stops) {max(rels[1:]):.3e}" if rels[1:] else ""))
+        check(all(np.isfinite(r) and r <= DENSE_REL_TOL for r in rels),
+              f"[dense n={N_TINY}] {name}: card and CPU differ beyond {DENSE_REL_TOL}")
+
+
+def run_dense(tag: str, fn, flops: float):
+    """One full-size dense run: the wall ending in `torch.cuda.synchronize()`,
+    the peak device memory, the device time of its sign iterations and its
+    replays, its share of the f64 operations bound and the sign iterations'
+    convergence (`SIGN_GAP_TOL`).  Returns ``fn()``'s result."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with DenseSplit() as split:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sign_s, replay_s = split.seconds("sign"), split.seconds("replay")
+    gaps = [float(g) for g in split.gaps]
+    bound = flops / PEAK_FLOP_S[torch.float64]
+    log(f"{tag}: wall {wall:.3f} s, peak device memory {peak:.2f} GiB; sign iterations "
+        f"{sign_s:.3f} s ({len(split.events['sign'])} of {SIGN_ITERS} steps), replays "
+        f"{replay_s:.3f} s ({len(split.events['replay'])}), the rest {wall - sign_s - replay_s:.3f} s; "
+        f"{flops:.4g} flop, bound {bound:.3f} s ({share(bound, wall)} of the wall at "
+        f"67 TFLOP/s); ‖M_final + I‖_F/√n at most {max(gaps):.3e}")
+    check(all(np.isfinite(g) and g <= SIGN_GAP_TOL for g in gaps),
+          f"{tag}: a sign iteration did not converge (‖M_final + I‖_F/√n {max(gaps):.3e})")
+    return out
+
+
+def phase_dense_full():
+    """The dense path at full size, n=5177 (phase 13): the GALE, the dense
+    GDRE by Ros1 to Ros4, the low-rank Ros1 and Ros2 on the DIA pencil
+    (through K1) against them, and the compiled Ros2 sweep on dense cores
+    (`ShiftLUs`).  Returns K1's launches per low-rank run."""
+    n = N_DENSE
+    eps = float(torch.finfo(torch.float64).eps)
+    log(f"[dense n={n}] TF32 in matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"float32 matmul precision {torch.get_float32_matmul_precision()}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    t0 = time.perf_counter()
+    prob, L0 = dense_gdre(n, CARD)
+    torch.cuda.synchronize()
+    log(f"[dense n={n}] dense Rail surrogate on the card in {time.perf_counter() - t0:.2f} s")
+
+    gale = GALEProblem(prob.E, prob.A, prob.C.T @ prob.C)
+    X = run_dense(f"[dense n={n} gale]", lambda: solve(gale, BartelsStewart()),
+                  sign_flops(n) + replay_flops(n))
+    res = float(torch.linalg.norm(residual(gale, X)) / torch.linalg.norm(gale.C))
+    log(f"[dense n={n} gale] relative residual {res:.6e}")
+    check(bool(torch.isfinite(X).all()) and res <= GALE_RES_TOL,
+          f"[dense n={n} gale]: relative residual {res:.3e} above {GALE_RES_TOL}")
+    del X, gale
+
+    nsteps = round((ROS1_TSPAN[1] - ROS1_TSPAN[0]) / ROS1_DT)
+    K_dense = {}
+    for alg in DENSE_ALGS:
+        tag = f"[dense n={n} {alg.__name__}]"
+        sol = run_dense(tag, lambda: solve(prob, alg(), dt=ROS1_DT),
+                        dense_flops(alg, n, nsteps))
+        check(len(sol.K) == nsteps + 1 and all(bool(torch.isfinite(K).all()) for K in sol.K)
+              and bool(torch.isfinite(sol.X[-1]).all()), f"{tag}: non-finite or missing output")
+        K_dense[alg] = sol.K[-1]
+        del sol
+    ref = K_dense[Ros4]
+    for alg in (Ros1, Ros2, Ros3):
+        rel = rel_diff(K_dense[alg], ref)
+        log(f"[dense n={n}] {alg.__name__} vs Ros4: K rel {rel:.3e} (orders 2-3 held to {ORDER_TOL})")
+        check(alg is Ros1 or rel <= ORDER_TOL, f"[dense n={n}] {alg.__name__} and Ros4 part by {rel:.3e}")
+
+    E_sp, A_sp, _, _ = rail_surrogate(n)
+    E_op, A_op = dia_pencil(E_sp, A_sp, dtype=torch.float64, device=CARD)
+    X0 = lowrank(L0, 0.01 * torch.eye(L0.shape[1], dtype=torch.float64, device=CARD))
+    lr_prob = GDREProblem(E_op, A_op, prob.B, prob.C, X0, ROS1_TSPAN)
+    launches = {}
+    for alg in (Ros1, Ros2):
+        tag = f"[dense n={n} low-rank {alg.__name__}]"
+        torch.cuda.synchronize()
+        k1.launches = 0  # this path's run starts here
+        t0 = time.perf_counter()
+        sol = solve(lr_prob, alg(), dt=ROS1_DT)
+        torch.cuda.synchronize()
+        launches[f"dense_check_lowrank_{alg.__name__.lower()}"] = nl = k1.launches  # and ends here
+        wall = time.perf_counter() - t0
+        dK = float(torch.linalg.norm(sol.K[-1] - K_dense[alg]))
+        tol = float(torch.linalg.norm(K_dense[alg])) * n * eps * 100
+        log(f"{tag}: wall {wall:.3f} s, rank {sol.X[-1].k}, K1 launches {nl}; "
+            f"‖K_lowrank − K_dense‖_F {dK:.3e} (limit ‖K‖·n·eps·100 = {tol:.3e}; "
+            f"relative {dK / (tol / (n * eps * 100)):.3e})")
+        check(dK <= tol, f"{tag}: K differs from the dense solver's by {dK:.3e} > {tol:.3e}")
+        check(nl > 0, f"{tag}: K1 was not launched")
+    del E_op, A_op, lr_prob
+
+    tau = -ROS1_DT
+    sv = heuristic_shifts_host(E_sp, sp.csr_matrix(_ROS2_GAMMA * tau * A_sp - 0.5 * E_sp),
+                               16, 20, 20)
+    check(all(abs(v.imag) <= 1e-12 * abs(v) for v in sv), "Penzl shifts are not real")
+    shifts = np.asarray([v.real for v in sv])
+    tag = f"[dense n={n} compiled Ros2 on dense cores]"
+    check(isinstance(prob.E, DenseOp) and isinstance(prob.A, DenseOp), f"{tag}: not dense cores")
+    cprob = GDREProblem(prob.E, prob.A, prob.B, prob.C,
+                        lr_with_capacity(X0, DENSE_SWEEP_CAPACITY), ROS1_TSPAN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol = solve_gdre_ros2_compiled(cprob, dt=ROS1_DT, shifts=shifts, cfg=DENSE_SWEEP_CFG,
+                                   capacity=DENSE_SWEEP_CAPACITY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dK = float(torch.linalg.norm(sol.K[-1] - K_dense[Ros2]))
+    tol = float(torch.linalg.norm(K_dense[Ros2])) * n * eps * 100
+    log(f"{tag}: {nsteps} steps in {wall:.3f} s (16 shifted LUs included), ADI iterations "
+        f"{sol.adi_iters}, worst residual {sol.adi_res_max:.6e}, rank {sol.X[-1].k}/"
+        f"{sol.X[-1].r}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"‖K − K_dense‖_F {dK:.3e} (limit {tol:.3e})")
+    check(dK <= tol, f"{tag}: K differs from the dense Ros2's by {dK:.3e} > {tol:.3e}")
+    return launches
+
+
 def checked(tag, kern, run):
     """``run()``, a full-size main path that returns its launches, under a
     `ProductLog`; then the kernels against their plain versions at every
@@ -1288,6 +1556,8 @@ def main() -> int:
                     help="capacity of X in the full-size Newton phase (default %(default)s)")
     ap.add_argument("--host-only", action="store_true",
                     help="build the kernels and run only the host-API phases 8 to 11")
+    ap.add_argument("--dense-only", action="store_true",
+                    help="build the kernels and run only the dense phases 12 and 13")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1305,6 +1575,9 @@ def main() -> int:
         if args.newton_only:
             checked(f"[n={N_FULL} newton]", "K1",
                     lambda: phase_newton_full(E, A, B, C, dev, args.newton_capacity))
+        elif args.dense_only:
+            phase_dense_small()
+            checked(f"[dense n={N_DENSE}]", "K1", phase_dense_full)
         elif args.host_only:
             phase_host_small()
             phase_complex()
@@ -1340,10 +1613,14 @@ def main() -> int:
             launches, err = phase_host_full(E, A, B, C, dev)
             k1_launches.update(launches)
             k1_err = max(k1_err, err)
+            phase_dense_small()
+            launches, err = checked(f"[dense n={N_DENSE}]", "K1", phase_dense_full)
+            k1_launches.update(launches)
+            k1_err = max(k1_err, err)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if not (args.newton_only or args.host_only):
+    if not (args.newton_only or args.host_only or args.dense_only):
         key1, key2 = ("mmT", "float64", 48), ("mm", "float64", 48)
         # K1's time is the cold one: its operands are not in the L2, as its
         # bound assumes.

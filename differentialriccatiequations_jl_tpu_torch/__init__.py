@@ -13,7 +13,10 @@ Solvers run where the problem's tensors are: build them on the card
 torch, numpy and scipy, never JAX.  Banded (DIA) products run through the
 hand-written CUDA kernel in ``csrc/dia_spmm.cu``, block-ELL products
 through ``csrc/bell_spmm.cu``, on CUDA tensors (built at first use, not at
-import), and through their plain PyTorch versions on CPU tensors.
+import), and through their plain PyTorch versions on CPU tensors.  The
+dense solvers (the sign-function GALE, dense Ros1–4) run on
+``torch.linalg`` factorizations and f64 matrix products (cuSOLVER and
+cuBLAS on the card).
 """
 
 from . import config  # noqa: F401  (switches TF32 off)
@@ -22,7 +25,9 @@ from .lowrank import (
     lr_sub, lr_to_dense, lr_with_capacity, lr_zero)
 from .models import (
     ADI, BartelsStewart, DRESolution, GALEProblem, GAREProblem, GDREProblem, GMRES,
-    Kronecker, Newton, Parareal, Ros1, Ros2, Ros3, Ros4, init, residual, solve)
+    Kronecker, Newton, Parareal, Ros1, Ros2, Ros3, Ros4, init, residual,
+    sign_function_cache, solve, solve_gale_dense, solve_gale_host, solve_gale_kronecker,
+    solve_gdre_dense)
 from .models import shifts as Shifts
 from .ops.blocklinear import (
     Backslash, BlockLinearProblem, Krylov, ShermanMorrisonWoodbury, solve_blocklinear)
@@ -39,4 +44,6 @@ __all__ = [
     "ADI", "BartelsStewart", "GMRES", "Kronecker", "Newton",
     "Ros1", "Ros2", "Ros3", "Ros4", "Parareal",
     "solve", "init", "residual", "Shifts",
+    "solve_gale_dense", "solve_gale_host", "solve_gale_kronecker",
+    "sign_function_cache", "solve_gdre_dense",
 ]

@@ -15,7 +15,8 @@ import torch
 
 from .lowrank import LowRank
 from .models import problems, shifts
-from .models.compiled import DiaShiftOps, SparseShiftOps
+from .models.compiled import DiaShiftOps, ShiftLUs, SparseShiftOps
+from .models.lyapunov_dense import SignFunctionCache
 from .models.problems import GALEProblem, GAREProblem, GDREProblem
 from .ops.blocklinear import Backslash, Krylov, ShermanMorrisonWoodbury
 from .ops.dia import DiaOp
@@ -177,3 +178,19 @@ def sparse_shift_ops_from_numpy(cols, data, diag, prec_inv, n, bs, cfg,
                           data=_t(data, device), diag_=_t(diag, device),
                           prec_inv=_t(prec_inv, device), n=int(n), bs=int(bs),
                           cfg=krylov_from(cfg))
+
+
+def _lapack_pivots(piv, device):
+    """JAX's 0-based LU pivots as torch's 1-based (LAPACK) int32 ones."""
+    return torch.tensor(np.asarray(piv, np.int32) + 1, device=device)
+
+
+def sign_cache_from_numpy(E_lu, E_piv, Minvs, cs, device=None) -> SignFunctionCache:
+    """`SignFunctionCache` from the JAX package's leaves (0-based pivots)."""
+    return SignFunctionCache(E_lu=_t(E_lu, device), E_piv=_lapack_pivots(E_piv, device),
+                             Minvs=_t(Minvs, device), cs=_t(cs, device))
+
+
+def shift_lus_from_numpy(lu, piv, device=None) -> ShiftLUs:
+    """`ShiftLUs` from the JAX package's batched LUs (0-based pivots)."""
+    return ShiftLUs(lu=_t(lu, device), piv=_lapack_pivots(piv, device))

@@ -18,6 +18,7 @@ is plain slicing.  `lr_compress` reads the new rank back from the device
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -134,9 +135,22 @@ def lr_add(X: LowRank, Y: LowRank, r_out: int | None = None) -> LowRank:
     """Lazy sum ``X + Y``: append ``Y``'s active term after ``X``'s.
 
     The output buffer width is ``r_out`` (default ``max(X.r, Y.r)``).
-    Columns of ``Y`` beyond the remaining capacity are **dropped**; callers
-    compress before capacity is exceeded.
+    Columns of ``Y`` beyond the remaining capacity are **dropped**, with a
+    `RuntimeWarning`; callers compress before capacity is exceeded.  The
+    compiled paths, which drop columns by design, call `lr_append`.
     """
+    r_out = r_out if r_out is not None else max(X.r, Y.r)
+    if X.k + Y.k > r_out:
+        warnings.warn(
+            f"lr_add: combined active rank {X.k + Y.k} exceeds output capacity "
+            f"{r_out}; trailing columns dropped — compress first or enlarge "
+            f"r_out", RuntimeWarning, stacklevel=2)
+    return lr_append(X, Y, r_out)
+
+
+def lr_append(X: LowRank, Y: LowRank, r_out: int | None = None) -> LowRank:
+    """`lr_add` without the capacity warning: columns of ``Y`` beyond
+    ``r_out`` are dropped silently."""
     if X.n != Y.n:
         raise ValueError(f"outer dimensions must match, got {X.n} and {Y.n}")
     r_out = r_out if r_out is not None else max(X.r, Y.r)

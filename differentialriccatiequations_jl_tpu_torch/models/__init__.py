@@ -1,23 +1,27 @@
 """Solver dispatch: the `solve` / `init` verbs (port of the JAX package's
 ``models/__init__.py``), and the solvers behind them.
 
-Ported branches: GALE with a low-rank right-hand side by the host ADI;
-low-rank GDRE by Ros1 and Ros2; GARE by Kleinman–Newton with an ADI inner
-solver.  The others raise `NotImplementedError` naming their ROADMAP item;
-a problem and algorithm that do not fit raise `TypeError` as in the JAX
-package.
+Ported branches: GALE by the host ADI (low-rank right-hand side), by the
+dense sign-function solver or the SciPy oracle (`BartelsStewart`) and by
+the Kronecker solve; low-rank GDRE by Ros1 and Ros2, dense GDRE by Ros1–4;
+GARE by Kleinman–Newton with an ADI inner solver.  GMRES and Parareal raise
+`NotImplementedError` naming their ROADMAP item; a problem and algorithm
+that do not fit raise `TypeError` as in the JAX package.
 """
 
 from __future__ import annotations
 
 from . import shifts
 from .adi import ADISolver, solve_gale_adi
+from .lyapunov_dense import (
+    _dense, sign_function_cache, solve_gale_dense, solve_gale_host, solve_gale_kronecker)
 from .newton import solve_gare_newton
 from .problems import (
     ADI, BartelsStewart, DRESolution, GALEProblem, GAREProblem, GDREProblem, GMRES,
     Kronecker, Newton, Parareal, Ros1, Ros2, Ros3, Ros4, quadratic_forcing,
     superlinear_forcing)
 from .residuals import residual
+from .rosenbrock_dense import solve_gdre_dense
 from .rosenbrock_lowrank import (
     feedback_K, solve_gdre_lowrank_ros1, solve_gdre_lowrank_ros2)
 
@@ -34,8 +38,15 @@ def solve(prob, alg, **kwargs):
             return solve_gale_adi(prob, alg, **kwargs)
         if isinstance(alg, GMRES):
             raise _not_ported("the GALE solver GMRES", 6)
-        if isinstance(alg, (BartelsStewart, Kronecker)):
-            raise _not_ported(f"the dense GALE solver {type(alg).__name__}", 7)
+        if isinstance(alg, BartelsStewart):
+            kwargs.pop("observer", None)
+            if alg.host:
+                return solve_gale_host(prob.E, prob.A, prob.C)
+            return solve_gale_dense(prob.E, prob.A, prob.C, alg.maxiters)
+        if isinstance(alg, Kronecker):
+            kwargs.pop("observer", None)
+            return solve_gale_kronecker(prob.E.to_dense(), prob.A.to_dense(),
+                                        _dense(prob.C))
         raise TypeError(f"no GALE solver for {alg!r}")
     if isinstance(prob, GAREProblem):
         if isinstance(alg, Newton):
@@ -52,7 +63,7 @@ def solve(prob, alg, **kwargs):
             raise TypeError(
                 f"low-rank GDRE supports Ros1/Ros2 (README.md:130-132), got {alg!r}")
         if isinstance(alg, (Ros1, Ros2, Ros3, Ros4)):
-            raise _not_ported(f"the dense GDRE integrator {type(alg).__name__}", 7)
+            return solve_gdre_dense(prob, alg, **kwargs)
         raise TypeError(f"no GDRE integrator for {alg!r}")
     raise TypeError(f"no solver for problem {type(prob)}")
 
@@ -70,4 +81,6 @@ __all__ = [
     "Ros1", "Ros2", "Ros3", "Ros4", "quadratic_forcing", "superlinear_forcing",
     "residual", "solve", "init", "ADISolver", "solve_gale_adi", "solve_gare_newton",
     "solve_gdre_lowrank_ros1", "solve_gdre_lowrank_ros2", "feedback_K", "shifts",
+    "solve_gale_dense", "solve_gale_host", "solve_gale_kronecker",
+    "sign_function_cache", "solve_gdre_dense",
 ]

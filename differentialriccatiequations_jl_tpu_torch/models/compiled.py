@@ -6,8 +6,9 @@ Port of the JAX package's ``models/compiled.py``: `ros1_step_compiled`,
 `solve_gdre_ros2_compiled` and the Newton solver
 `solve_gare_newton_compiled` → `adi_compiled` → block-Jacobi preconditioned
 Krylov solves over precomputed shifted operators (`DiaShiftOps` for banded
-pencils, `SparseShiftOps` for block-ELL ones) with an SMW feedback
-correction → `lr_compress`.  The JAX package compiles a step into one
+pencils, `SparseShiftOps` for block-ELL ones), or LU solves over
+precomputed factorizations (`ShiftLUs` for dense ones), with an SMW
+feedback correction → `lr_compress`.  The JAX package compiles a step into one
 ``jit`` with a ``lax.while_loop`` (and a sweep into one ``lax.scan``); here
 PyTorch runs eagerly, so the loops and their branches are Python control
 flow:
@@ -22,8 +23,9 @@ flow:
 Supported shift buffers: all-real 1-D ``(ns,)`` and the pair encoding
 ``(ns, 2)`` of ``(Re μ, |Im μ|)`` rows (`pair_encode_shifts`), whose
 conjugate-pair slots run the all-real stacked double step (banded pencils
-only).  A 1-D complex buffer raises: in the JAX package it is a CPU-only
-route, and the pair encoding keeps the kernels real-only.
+only).  A 1-D complex buffer runs the complex double step on dense cores
+(complex LUs, the JAX package's CPU route) and raises on the others: the
+pair encoding keeps the kernels real-only.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ import numpy as np
 import torch
 
 from ..lowrank import (
-    LowRank, _mask_cols, lr_add, lr_compress, lr_norm, lr_scale, lr_with_capacity,
-    lr_zero)
+    LowRank, _mask_cols, lr_add, lr_append, lr_compress, lr_norm, lr_scale,
+    lr_with_capacity, lr_zero)
 from ..ops.blocklinear import (
     DenseLUSolver, Krylov, KrylovSolver, PairBlockPrec, PairSMWSolver,
     SMWSolver, block_jacobi_inverses)
@@ -289,6 +291,50 @@ def build_sparse_shift_ops(E: BellOp, A0: BellOp, shifts,
                           n=At.n, bs=At.bs, cfg=krylov_cfg)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShiftLUs:
+    """LU factorizations of the shifted dense cores ``A₀ᵀ + μₛEᵀ``, one
+    slot per shift: built once for a sweep, so a shift costs two triangular
+    solves (plus the SMW correction of the feedback) instead of a new
+    factorization."""
+
+    lu: torch.Tensor  # (ns, n, n)
+    piv: torch.Tensor  # (ns, n), 1-based (LAPACK)
+
+    def core_solver(self, idx: int) -> DenseLUSolver:
+        return DenseLUSolver(lu=self.lu[idx], piv=self.piv[idx])
+
+
+def build_shift_lus(E: DenseOp, A0: DenseOp, shifts) -> ShiftLUs:
+    """Factor ``A₀ᵀ + μₛEᵀ`` for every shift.  ``shifts``: host array, 1-D
+    real or complex, or the pair encoding with every ``Im μ = 0``.  A real
+    buffer gives real LUs in the operators' dtype, a complex one complex LUs
+    (its pairs run the complex double step in `adi_compiled`).
+
+    One `torch.linalg.lu_factor` per shift, into preallocated column-major
+    (LAPACK) storage: a batched call would hold a second copy of every core
+    (3.4 GB for 16 shifts at n = 5177), and on the CPU, once
+    `torch.set_num_threads` has set more than one thread, it stalls in MKL
+    for n ≳ 200 (torch 2.13)."""
+    shifts = np.asarray(shifts)
+    if shifts.ndim == 2:
+        if np.any(shifts[:, 1] != 0):
+            raise ValueError("pair-encoded conjugate pairs need a banded core; "
+                             "pass dense cores a 1-D complex buffer")
+        shifts = shifts[:, 0]
+    At, Et = A0.M.T, E.M.T
+    dt = At.dtype
+    if np.iscomplexobj(shifts):
+        dt = torch.promote_types(dt, torch.complex64)
+    ns, n = shifts.shape[0], At.shape[0]
+    lu = torch.empty((ns, n, n), dtype=dt, device=At.device).mT
+    piv = torch.empty((ns, n), dtype=torch.int32, device=At.device)
+    At = At.to(dt)
+    for s, mu in enumerate(torch.as_tensor(shifts).to(dt).tolist()):
+        lu[s], piv[s] = torch.linalg.lu_factor(At + mu * Et)
+    return ShiftLUs(lu=lu, piv=piv)
+
+
 def _small_dense_solver(S: torch.Tensor):
     """Prepared solver for a small dense system (LU)."""
     lu, piv = torch.linalg.lu_factor(S)
@@ -340,40 +386,60 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
         ``w_k`` active leading columns; increments add ``w_k`` (or
         ``2·w_k``) columns to ``X``.
       X0: warm-start iterate; ``W0 T0 W0ᵀ`` must be the GALE residual at it.
-      shifts: host array, 1-D real or ``(ns, 2)`` pair-encoded.
+      shifts: host array, 1-D real or ``(ns, 2)`` pair-encoded; 1-D
+        complex (conjugates adjacent, `check_shift_pairing`) with
+        `ShiftLUs` only, whose pairs run the complex double step.
       abstol: absolute residual tolerance.
-      shift_lus: `DiaShiftOps` or `SparseShiftOps` built for ``shifts``
-        (only `DiaShiftOps` has the pair tables a conjugate pair needs).
+      shift_lus: `DiaShiftOps`, `SparseShiftOps` or `ShiftLUs` built for
+        ``shifts`` (only `DiaShiftOps` has the pair tables a pair-encoded
+        conjugate pair needs).
 
     Compression runs every ``cfg.compression_interval`` iterations and
     whenever the next increment would overflow the capacity ``X0.r``; a
     numerical rank above the capacity is truncated.
 
+    Columns beyond the capacity are dropped without `lr_add`'s warning
+    (`lr_append`): the JAX package checks capacity only where ranks are
+    host values, not in its compiled ADI (its ``models/compiled.py:486-635``),
+    and the bench's capacity-96 Ros2 drops columns by design (71 times in 3
+    steps at n = 1357), which would flood a sweep's log.
+
     Returns (X, W, iters, res_norm).
     """
     shifts = np.asarray(shifts)
-    if np.iscomplexobj(shifts):
-        raise ValueError("complex 1-D shift buffers are not supported; "
+    dense_lus = isinstance(shift_lus, ShiftLUs)
+    if np.iscomplexobj(shifts) and not dense_lus:
+        raise ValueError("complex 1-D shift buffers need dense cores (ShiftLUs); "
                          "pair-encode them with pair_encode_shifts")
     nshifts = shifts.shape[0]
     pair_encoded = shifts.ndim == 2
     q = W0.shape[1]
     dt = W0.dtype
-    sdt = shift_lus.data.dtype
+    sdt = shift_lus.lu.dtype if dense_lus else shift_lus.data.dtype
+
+    def cached_solve(idx, W):
+        """``(Aᵀ + μEᵀ)⁻¹W`` through slot ``idx``'s core and the SMW
+        correction, in the cores' dtype."""
+        return _wrap_smw(shift_lus.core_solver(idx), A, sdt).solve(W.to(sdt))
 
     def real_step(mu, idx, W, T, X):
-        solver = _wrap_smw(shift_lus.core_solver(idx), A, sdt)
-        V = solver.solve(W.to(sdt)).to(dt)
+        V = cached_solve(idx, W)
+        V = (V.real if V.is_complex() else V).to(dt)
         incr = LowRank(L=V, D=(-2.0 * mu) * T, k=w_k)
         W_new = W - 2.0 * mu * E.tmm(V)
-        return W_new, lr_add(X, incr, r_out=X.r), 1
+        return W_new, lr_append(X, incr, r_out=X.r), 1
 
     def double_step(mur, b, idx, W, T, X):
-        # All-real stacked solve of the pair system (the complex double
-        # step reformulated over ℝ).
-        solver = _wrap_smw_pair(shift_lus.pair_solver(idx, b), A, sdt)
-        Vst = solver.solve(torch.cat([W, torch.zeros_like(W)], dim=1).to(sdt))
-        Vr, Vi = Vst[:, :q].to(dt), Vst[:, q:].to(dt)
+        if dense_lus:
+            # One complex solve for the pair a ± b·i (1-D complex buffer).
+            V = cached_solve(idx, W)
+            Vr, Vi = V.real.to(dt), V.imag.to(dt)
+        else:
+            # All-real stacked solve of the pair system (the complex double
+            # step reformulated over ℝ).
+            solver = _wrap_smw_pair(shift_lus.pair_solver(idx, b), A, sdt)
+            Vst = solver.solve(torch.cat([W, torch.zeros_like(W)], dim=1).to(sdt))
+            Vr, Vi = Vst[:, :q].to(dt), Vst[:, q:].to(dt)
         delta = mur / b
         s2 = math.sqrt(2.0)
         V1 = s2 * Vr + (s2 * delta) * Vi
@@ -383,7 +449,7 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
         incr1 = LowRank(L=V1, D=(-2.0 * mur) * T, k=w_k)
         incr2 = LowRank(L=V2, D=(-2.0 * mur) * T, k=w_k)
         W_new = W - (2.0 * s2 * mur) * E.tmm(V1)
-        X_new = lr_add(lr_add(X, incr1, r_out=X.r), incr2, r_out=X.r)
+        X_new = lr_append(lr_append(X, incr1, r_out=X.r), incr2, r_out=X.r)
         return W_new, X_new, 2
 
     X, W = X0, W0
@@ -397,10 +463,10 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
         if pair_encoded:
             mur, b = float(shifts[idx, 0]), float(shifts[idx, 1])
         else:
-            mur, b = float(shifts[idx]), 0.0
+            mur, b = float(shifts[idx].real), float(shifts[idx].imag)
         if b == 0.0:
             W, X, used = real_step(mur, idx, W, T0, X)
-        elif getattr(shift_lus, "et_data", None) is None:
+        elif not (dense_lus or getattr(shift_lus, "et_data", None) is not None):
             raise ValueError("pair-encoded shift with Im(mu) != 0 but the "
                              "shift operators have no pair tables")
         else:
@@ -585,7 +651,7 @@ def build_step_shift_solvers(E, F_base, shifts, krylov_cfg: Krylov | None = None
                              block_cache: dict | None = None):
     """Route the shifted-core preparation by operator kind: banded →
     `build_dia_shift_ops` (``block_cache`` is forwarded), block-ELL →
-    `build_sparse_shift_ops`.  A dense core is not ported yet."""
+    `build_sparse_shift_ops`, dense → `build_shift_lus`."""
     core = F_base.A if isinstance(F_base, LowRankUpdateOp) else F_base
     sarr = np.asarray(shifts)
     if sarr.ndim == 2 and np.any(sarr[:, 1] != 0) and not isinstance(core, DiaOp):
@@ -600,7 +666,7 @@ def build_step_shift_solvers(E, F_base, shifts, krylov_cfg: Krylov | None = None
     if isinstance(core, BellOp):
         return build_sparse_shift_ops(E, core, shifts, krylov_cfg)
     if isinstance(core, DenseOp):
-        raise NotImplementedError("dense shifted cores are not ported yet")
+        return build_shift_lus(E, core, shifts)
     raise TypeError(f"no shift solver for {type(core).__name__}")
 
 
@@ -631,10 +697,11 @@ def ros2_step_compiled(E, A, B, C, X: LowRank, tau: float, shifts,
     K2, _, it2, res2 = adi_compiled(E, F, _mask_cols(R2.L, R2.k), R2.D, R2.k,
                                     zero, shifts, abstol, cfg, shift_lus)
 
-    # Fold both stages back into the state capacity.
-    X1 = lr_add(X, LowRank(L=K1.L, D=(2.0 - 1.0 / (2.0 * gamma)) * tau * K1.D,
-                           k=K1.k), r_out=2 * X.r)
-    X1 = lr_add(X1, LowRank(L=K2.L, D=(-tau / 2.0) * K2.D, k=K2.k), r_out=2 * X.r)
+    # Fold both stages back into the state capacity (dropping silently, as
+    # `adi_compiled` does).
+    X1 = lr_append(X, LowRank(L=K1.L, D=(2.0 - 1.0 / (2.0 * gamma)) * tau * K1.D,
+                              k=K1.k), r_out=2 * X.r)
+    X1 = lr_append(X1, LowRank(L=K2.L, D=(-tau / 2.0) * K2.D, k=K2.k), r_out=2 * X.r)
     X_new = lr_compress(X1, r_out=X.r)
     return X_new, feedback_K(E, B, X_new), it1 + it2, torch.maximum(res1, res2)
 

@@ -28,13 +28,19 @@ def _on(x, op):
     return torch.as_tensor(x, device=getattr(op, "device", None))
 
 
+def _dense_on(x, op):
+    """Dense data on the device of operator ``op`` (the same tensor when it
+    is there already); a `LowRank` or ``None`` as it is."""
+    return x if x is None or isinstance(x, LowRank) else _on(x, op)
+
+
 class GALEProblem:
     """Generalized algebraic Lyapunov equation ``AᵀXE + EᵀXA = −C``."""
 
     def __init__(self, E, A, C):
         self.E = as_operator(E)
         self.A = as_operator(A)
-        self.C = C  # LowRank or a dense tensor
+        self.C = _dense_on(C, self.E)  # LowRank or dense
 
     @property
     def n(self) -> int:
@@ -53,7 +59,7 @@ class GDREProblem:
         self.A = as_operator(A)
         self.B = _on(B, self.E)
         self.C = _on(C, self.E)
-        self.X0 = X0  # LowRank or dense (n, n)
+        self.X0 = _dense_on(X0, self.E)  # LowRank or dense (n, n)
         self.tspan = (float(tspan[0]), float(tspan[1]))
 
     @property
@@ -160,8 +166,9 @@ class ADI:
 
 @dataclasses.dataclass(frozen=True)
 class BartelsStewart:
-    """Dense GALE solve (the sign-function solver).  Not ported yet
-    (ROADMAP Queue 1 item 7): `solve` raises for it."""
+    """Dense GALE solve: the sign-function iteration on the tensors' device
+    (`models.lyapunov_dense.solve_gale_dense`, ``maxiters`` steps), or with
+    ``host=True`` SciPy's Bartels–Stewart on the host CPU (the oracle)."""
 
     maxiters: int = 40
     host: bool = False
@@ -184,8 +191,7 @@ class GMRES:
 
 @dataclasses.dataclass(frozen=True)
 class Kronecker:
-    """Naive n² dense Kronecker solve, for tests.  Not ported yet (ROADMAP
-    Queue 1 item 7): `solve` raises for it."""
+    """Naive n² × n² dense Kronecker solve, for tests."""
 
 
 # --- algebraic Riccati -----------------------------------------------------------

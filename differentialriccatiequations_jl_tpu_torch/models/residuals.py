@@ -1,9 +1,9 @@
-"""Low-rank GALE and GARE residuals and the `residual` dispatch (port of
-the low-rank part of the JAX package's ``models/residuals.py``).
+"""GALE and GARE residuals, low-rank and dense, and the `residual`
+dispatch (port of the JAX package's ``models/residuals.py``).
 
-The residual never forms the n×n matrix: it assembles a factor
+The low-rank residual never forms the n×n matrix: it assembles a factor
 ``R = [G  EᵀL  AᵀL]`` with a small block middle matrix and compresses
-(Benner–Li–Penzl 2008).
+(Benner–Li–Penzl 2008).  The dense residuals form it.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 
 from ..lowrank import LowRank, lr_compress
 from ..ops.operators import as_operator
+from .lyapunov_dense import _dense
 
 
 def residual_gale_lowrank(E, A, C: LowRank, X: LowRank,
@@ -63,20 +64,35 @@ def residual_gare_lowrank(E, A, G: LowRank, Q: LowRank, X: LowRank,
     return lr_compress(res, r_out=r_out)
 
 
+def residual_gale_dense(E, A, C, X: torch.Tensor) -> torch.Tensor:
+    """Dense GALE residual ``C + AᵀXE + EᵀXA``."""
+    E = as_operator(E)
+    A = as_operator(A)
+    return _dense(C) + A.tmm(X) @ E.to_dense() + E.tmm(X) @ A.to_dense()
+
+
+def residual_gare_dense(E, A, G: LowRank, Q, X: torch.Tensor) -> torch.Tensor:
+    """Dense GARE residual ``Q + AᵀXE + EᵀXA − EᵀXGXE``."""
+    E = as_operator(E)
+    A = as_operator(A)
+    Ed = E.to_dense()
+    BtXE = (G.L.T @ X) @ Ed
+    return (_dense(Q) + A.tmm(X) @ Ed + E.tmm(X) @ A.to_dense()
+            - BtXE.T @ G.D @ BtXE)
+
+
 def residual(prob, X, **kw):
-    """The residual of ``X`` for a GALE or GARE problem, as a compressed
-    `LowRank`.  Only the low-rank forms are ported: a dense ``X`` or right-
-    hand side raises (ROADMAP Queue 1 item 7, the dense path)."""
+    """The residual of ``X`` for a GALE or GARE problem: a compressed
+    `LowRank` for a low-rank ``X`` (and right-hand side), else a dense
+    tensor."""
     from .problems import GALEProblem, GAREProblem
 
     if isinstance(prob, GALEProblem):
         if isinstance(X, LowRank) and isinstance(prob.C, LowRank):
             return residual_gale_lowrank(prob.E, prob.A, prob.C, X, **kw)
-        raise NotImplementedError("the dense GALE residual is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+        return residual_gale_dense(prob.E, prob.A, prob.C, X)
     if isinstance(prob, GAREProblem):
         if isinstance(X, LowRank):
             return residual_gare_lowrank(prob.E, prob.A, prob.G, prob.Q, X, **kw)
-        raise NotImplementedError("the dense GARE residual is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+        return residual_gare_dense(prob.E, prob.A, prob.G, prob.Q, X)
     raise TypeError(f"no residual for problem type {type(prob)}")

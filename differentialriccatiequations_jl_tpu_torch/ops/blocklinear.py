@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -79,8 +80,9 @@ class Krylov:
     negate: solve ``(−A)X = −B`` — lets CG run on symmetric *negative*
     definite shifted coefficients ``Aᵀ + μEᵀ`` (A stable, μ < 0).
     solve_dtype, refine_iters: the mixed-precision core with iterative
-    refinement; not ported (ROADMAP Queue 1 item 4), a ``solve_dtype``
-    raises.
+    refinement; not ported (ROADMAP Queue 1 item 4): a ``solve_dtype``
+    other than the operator's dtype raises, one equal to it runs plain
+    Krylov.
     """
 
     method: str = "bicgstab"
@@ -361,6 +363,15 @@ def _extract_diag(op) -> torch.Tensor:
     return op.diag()  # sparse operators implement .diag()
 
 
+def _solve_dtype(name, op_dtype: torch.dtype) -> torch.dtype:
+    """The torch dtype of a ``Krylov.solve_dtype`` (a numpy dtype name or
+    object), made complex for complex operators, as the JAX package does."""
+    lo = np.dtype(name)
+    if op_dtype.is_complex:
+        lo = np.result_type(lo, np.complex64)
+    return torch.from_numpy(np.zeros((), lo)).dtype
+
+
 def prepare(A, alg) -> object:
     """A prepared (factored) solver for operator ``A`` under ``alg``."""
     A = as_operator(A)
@@ -381,11 +392,11 @@ def prepare(A, alg) -> object:
         return SMWSolver(base=base, AinvU=AinvU, V=A.V,
                          schur=prepare(DenseOp(S), alg.inner))
     if isinstance(alg, Krylov):
-        if alg.solve_dtype is not None:
+        if alg.solve_dtype is not None and _solve_dtype(alg.solve_dtype, A.dtype) != A.dtype:
             raise NotImplementedError(
-                "Krylov(solve_dtype=...), the mixed-precision core with "
-                "iterative refinement, is not ported yet (ROADMAP Queue 1 "
-                "item 4)")
+                "Krylov(solve_dtype=...) other than the operator's dtype, the "
+                "mixed-precision core with iterative refinement, is not "
+                "ported yet (ROADMAP Queue 1 item 4)")
         if alg.method not in ("cg", "bicgstab"):
             raise _unported_method(alg.method)
         if alg.preconditioner == "block_jacobi" and hasattr(A, "diag_blocks"):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one step goes, on one GPU.
 
-    python3 profile_steps.py [OUT_DIR]
+    python3 profile_steps.py [--dense-only] [OUT_DIR]
 
 Builds K1 and K2, then runs one step of each full-size path of
 `chip_smoke.py` (the n=79841 Rail surrogate, f64) three times from the same
@@ -22,13 +22,18 @@ CUDA activities), and once more unprofiled.
   ``solve()`` on the DIA pencil, as in `chip_smoke.py` phase 10 cut to its
   shift set-up and `HOST_ITERS` ADI iterations, with `utils.timers` on:
   its sections (``shifts.arnoldi``, ``adi.shifted_solve``, ...) are
-  `torch.profiler` ranges, listed with their host times after the kernels.
+  `torch.profiler` ranges, listed with their host times after the kernels;
+* ``dense``: one dense Ros2 step (`rosenbrock_dense._ros2_step`) on the
+  n=5177 dense Rail surrogate from ``X0``, as in `chip_smoke.py` phase 13,
+  with the device time split by kernel class (`DENSE_CLASSES`: the LU
+  factorizations, the triangular solves, the GEMMs, the rest).
 
 Prints, per path, the step's wall clock with and without the profiler, the
 summed device time of all kernels and copies and its share of the profiled
 wall, the kernel launches and host syncs, K1's share of the device time,
 and the largest device-time kernels; with ``OUT_DIR``, writes the full
-kernel tables to ``OUT_DIR/profile_<path>.txt``.
+kernel tables to ``OUT_DIR/profile_<path>.txt``.  ``--dense-only`` builds
+the kernels and profiles the ``dense`` path alone.
 Exits non-zero without a CUDA device.  Imports nothing of JAX.
 """
 
@@ -53,6 +58,7 @@ from differentialriccatiequations_jl_tpu_torch.models import compiled
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
     _ROS2_GAMMA, _abstol_default, build_dia_shift_ops, build_step_shift_solvers,
     pair_encode_shifts, ros1_step_compiled, ros2_step_compiled, solve_gare_newton_compiled)
+from differentialriccatiequations_jl_tpu_torch.models.rosenbrock_dense import _ros2_step
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
 from differentialriccatiequations_jl_tpu_torch.ops.operators import lin_comb, scale_op
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil
@@ -73,13 +79,14 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def report(name: str, step, out: Path | None, ranges: bool = False) -> None:
+def report(name: str, step, out: Path | None, ranges: bool = False):
     _, first = timed(step)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_prof = timed(step)
     _, wall = timed(step)
     summarize(name, prof, f"first {first:.3f} s, profiled {wall_prof:.3f} s, "
               f"unprofiled {wall:.3f} s", wall_prof, out, ranges)
+    return prof
 
 
 RANGES = re.compile(r"^(adi|shifts|smw|newton|gdre)\.")  # utils/timers sections
@@ -179,13 +186,45 @@ def report_host(E, A, B, C, dev, out: Path | None) -> None:
         timers.enable(False)
 
 
+# Kernel classes of the dense step, matched in order on the device kernel's
+# name (cuSOLVER, MAGMA and cuBLAS kernels; an LU's panel updates run as
+# GEMMs and triangular solves of their own and are counted there).
+DENSE_CLASSES = (("triangular solves", re.compile(r"trsm|trsv|getrs", re.I)),
+                 ("GEMMs", re.compile(r"gemm|xmma|cutlass", re.I)),
+                 ("LU factorizations", re.compile(r"getrf|getf2|laswp|iamax|swap|pivot|magma", re.I)))
+
+
+def report_dense(out: Path | None) -> None:
+    """One dense Ros2 step at n=5177: `report` (the card's busy share of
+    the profiled wall among it), then the device time by kernel class."""
+    prob, _ = cs.dense_gdre(cs.N_DENSE, "cuda")
+    Ed, Ad = prob.E.to_dense(), prob.A.to_dense()
+    CtC = prob.C.T @ prob.C
+    K = (prob.B.T @ prob.X0) @ Ed
+    tau = -cs.ROS1_DT
+    prof = report("dense", lambda: _ros2_step(Ed, Ad, prob.B, CtC, prob.X0, K, tau), out)
+    by_class = defaultdict(float)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        name = next((c for c, rx in DENSE_CLASSES if rx.search(e.name)), "other")
+        by_class[name] += e.time_range.elapsed_us() / 1e3
+    total = sum(by_class.values())
+    for name, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        cs.log(f"[dense] {name}: {ms:.1f} ms ({100 * ms / total:.1f} % of the device time)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_steps: no CUDA device", file=sys.stderr)
         return 2
-    out = Path(sys.argv[1]) if len(sys.argv) > 1 else None
+    args = [a for a in sys.argv[1:] if a != "--dense-only"]
+    out = Path(args[0]) if args else None
     cs.log(f"[card] {cs.card_line()}")
     cs.phase_build()
+    if "--dense-only" in sys.argv:
+        report_dense(out)
+        return 0
     dev, dt, tau = torch.device("cuda"), torch.float64, cs.TAU
     E, A, B, C = rail_surrogate(cs.N_FULL)
     B_d = torch.as_tensor(B, dtype=dt, device=dev)
@@ -221,6 +260,9 @@ def main() -> int:
 
     # The host-API GALE (chip_smoke.py phase 10, cut).
     report_host(E, A, B, C, dev, out)
+
+    # One dense Ros2 step (chip_smoke.py phase 13).
+    report_dense(out)
     return 0
 
 

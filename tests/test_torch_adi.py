@@ -33,12 +33,11 @@ import differentialriccatiequations_jl_tpu as J  # noqa: E402
 import differentialriccatiequations_jl_tpu_torch as T  # noqa: E402
 from differentialriccatiequations_jl_tpu.ops import dia as jdia  # noqa: E402
 from differentialriccatiequations_jl_tpu.ops import sparse as jsparse  # noqa: E402
-from differentialriccatiequations_jl_tpu.utils.testmat import (  # noqa: E402
-    conv_diff_surrogate, random_pencil, random_rhs_lowrank)
 from differentialriccatiequations_jl_tpu_torch.convert import (  # noqa: E402
     config_from, gale_problem_from_numpy)
 from differentialriccatiequations_jl_tpu_torch.utils import callbacks as tcb  # noqa: E402
-from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate  # noqa: E402
+from differentialriccatiequations_jl_tpu_torch.utils.testmat import (  # noqa: E402
+    conv_diff_surrogate, rail_surrogate, random_pencil, random_rhs_lowrank)
 
 jcb = importlib.import_module("differentialriccatiequations_jl_tpu.utils.callbacks")
 JS = J.Shifts

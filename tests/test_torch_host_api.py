@@ -146,19 +146,19 @@ def test_unported_branches_raise():
     _, (tE, tA), B = _pencils()
     C = torch.as_tensor(np.ones((2, N)))
     gale = T.GALEProblem(tE, tA, T.lowrank(C.T.contiguous()))
-    for alg, item in ((T.GMRES(), 6), (T.BartelsStewart(), 7), (T.Kronecker(), 7)):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            T.solve(gale, alg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        T.solve(gale, T.GMRES())
     X0 = T.lowrank(C.T.contiguous())
     lr = T.GDREProblem(tE, tA, B, C, X0, (1.0, 0.0))
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         T.solve(lr, T.Parareal(), dt=-0.5)
+    # The dense branches are ported (ROADMAP Queue 1 item 7, PR 6); the
+    # dense integrators take no inner algorithm but BartelsStewart.
     dense = T.GDREProblem(tE, tA, B, C, torch.eye(N, dtype=torch.float64), (1.0, 0.0))
-    for alg in (T.Ros1(), T.Ros4()):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    for alg in (T.Ros1(inner_alg=T.ADI()), T.Ros2(inner_alg=T.ADI())):
+        with pytest.raises(NotImplementedError, match="BartelsStewart inner solves"):
             T.solve(dense, alg, dt=-0.5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        T.residual(gale, torch.eye(N, dtype=torch.float64))
+    assert T.residual(gale, torch.zeros((N, N), dtype=torch.float64)).shape == (N, N)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tbl.prepare(tA, T.Krylov(method="gmres"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):

@@ -50,19 +50,34 @@ both compilers started together, and then:
     split between the sign iterations and the replays, share of the f64
     operations bound and ‖M_final + I‖_F/√n; then holds the low-rank Ros1
     and Ros2 on the DIA pencil (through K1) and the compiled Ros2 sweep on
-    dense cores against the dense K within ‖K‖·n·eps·100 (rail.jl:52-70).
+    dense cores against the dense K within ‖K‖·n·eps·100 (rail.jl:52-70);
+14. runs GMRES on the card and on the CPU, small (`Krylov(method="gmres")`
+    on one shifted DIA operator and the README's GALE under FGMRES with an
+    ADI preconditioner at n=1357, the compiled Newton+FGMRES at n=371), then
+    at full size on the DIA pencil: the GALE under FGMRES through the public
+    ``solve`` (its restart loop included) and the compiled Newton+FGMRES
+    (cut to `FGMRES_FULL_MAXITERS` steps, and at n=1357 to
+    `FGMRES_SMALL_MAXITERS`);
+15. runs the mixed-precision core (f32 Krylov cores with f64 iterative
+    refinement) on the card and on the CPU at n=1357 (refined solves on a
+    real and a pair DIA slot and on block-ELL, the compiled GALE), then at
+    full size: the compiled GALE with the f32 core and with the f64 core,
+    the compiled Newton with f32 inner solves (to its end, at most
+    `MIXED_NEWTON_MAXITERS` steps) and one refined solve on the block-ELL
+    pencil against the f64 solve, counting K1 and K2 launches by dtype.
 
-Phases 10 and 11 hold each solver's residual against an independent
-evaluation (`residual`).  Every full-size path (phases 3, 5, 7, 10, 11 and 13)
-records the products it hands K1 and K2 (`ProductLog`: product, width,
-operand strides); after the run each kernel is held against its plain
-version at every one of them.
+Phases 10, 11, 14 and 15 hold each solver's residual against an
+independent evaluation (`residual`).  Every full-size path (phases 3, 5, 7,
+10, 11, 13, 14 and 15) records the products it hands K1 and K2
+(`ProductLog`: product, dtype, width, operand strides); after the run each
+kernel is held against its plain version at every one of them.
 
     python3 chip_smoke.py --newton-only [--newton-capacity 192]
 
 builds the kernels and runs phase 7 alone (at another capacity of ``X``);
 ``--host-only`` builds them and runs phases 8 to 11, ``--dense-only``
-phases 12 and 13.
+phases 12 and 13, ``--gmres-only`` phase 14 and ``--mixed-only`` phase 15
+(both flags: both phases).
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -72,8 +87,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -88,22 +105,24 @@ import scipy.sparse.linalg as spla
 import torch
 
 from differentialriccatiequations_jl_tpu_torch import (
-    ADI, BartelsStewart, GALEProblem, Kronecker, Newton, Ros1, Ros2, Ros3, Ros4, Shifts, init,
-    residual, solve)
+    ADI, GMRES, BartelsStewart, GALEProblem, Krylov, Kronecker, Newton, Ros1, Ros2, Ros3, Ros4,
+    Shifts, init, residual, solve)
 from differentialriccatiequations_jl_tpu_torch.entry import SHIFTS, entry
 from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
 from differentialriccatiequations_jl_tpu_torch.kernels import build
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
 from differentialriccatiequations_jl_tpu_torch.lowrank import (
-    LowRank, lowrank, lr_add, lr_compress, lr_norm, lr_scale, lr_with_capacity)
+    LowRank, _mask_cols, lowrank, lr_add, lr_compress, lr_norm, lr_scale, lr_with_capacity,
+    lr_zero)
 from differentialriccatiequations_jl_tpu_torch.models import compiled
 from differentialriccatiequations_jl_tpu_torch.models import lyapunov_dense
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
-    _ROS2_GAMMA, CompiledConfig, PerStepHeuristic, _residual_norm, build_dia_shift_ops,
-    pair_encode_shifts, ros1_initial_residual, ros1_step_compiled,
-    solve_gare_newton_compiled, solve_gdre_ros2_compiled)
+    _ROS2_GAMMA, CappedADI, CompiledConfig, PerStepHeuristic, _residual_norm,
+    build_dia_shift_ops, default_dia_krylov, pair_encode_shifts, ros1_initial_residual,
+    ros1_step_compiled, solve_gare_newton_compiled, solve_gdre_ros2_compiled)
 from differentialriccatiequations_jl_tpu_torch.models.problems import GAREProblem, GDREProblem
-from differentialriccatiequations_jl_tpu_torch.models.residuals import residual_gare_lowrank
+from differentialriccatiequations_jl_tpu_torch.models.residuals import (
+    residual_gale_lowrank, residual_gare_lowrank)
 from differentialriccatiequations_jl_tpu_torch.models.rosenbrock_lowrank import _ros2_rhs1, feedback_K
 from differentialriccatiequations_jl_tpu_torch.models import shifts as shift_mod
 from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_shifts_host
@@ -245,6 +264,60 @@ ORDER_TOL = 5e-2
 # 64 and at 256 and 96 (the limit there is 3.0e-11).
 DENSE_SWEEP_CFG = CompiledConfig(maxiters=60, compression_interval=10, r_res=96)
 DENSE_SWEEP_CAPACITY = 256
+# GMRES (phase 14).  Card vs CPU: `Krylov(method="gmres")` on Aᵀ − Eᵀ
+# (restart 20, maxiter 3) and the README's GALE under FGMRES at n=1357; the
+# compiled Newton+FGMRES at n=371 (its CPU side about 13 s).  Full size: the
+# same GALE, and `bench.py`'s Newton+FGMRES family (GMRES(5), CappedADI(15,
+# 64, 192), PerStepHeuristic(20, 30, 30), CompiledConfig(100, 10, 48)) at
+# capacity 192 (the ADI Newton aborts at 96 at this n) and reltol 1e-8 (the
+# FGMRES class of tests/test_compiled.py), cut to FGMRES_FULL_MAXITERS
+# Newton steps to fit the time budget, and at n=1357 to
+# FGMRES_SMALL_MAXITERS (on the CPU it converges there in 24 steps; on the
+# card it stalls at FGMRES's floor, 1.8e-8 after 60 steps, 105 s).
+GMRES_KRYLOV = Krylov(method="gmres", restart=20, maxiter=3, tol=1e-12, negate=True,
+                      preconditioner="block_jacobi")
+GALE_FGMRES = GMRES(maxiters=3, maxrestarts=1, reltol=1e-10, preconditioner=ADI(
+    maxiters=10, shifts=HOST_SHIFTS, compression_interval=20, warn_convergence=False))
+NEWTON_FGMRES = GMRES(maxiters=5, maxrestarts=0, ignore_initial_guess=True,
+                      warn_convergence=False, preconditioner=CappedADI(15, 64, 192))
+FGMRES_CFG = CompiledConfig(maxiters=100, compression_interval=10, r_res=48)
+FGMRES_CAPACITY = 192
+FGMRES_RELTOL = 1e-8
+FGMRES_FULL_MAXITERS = 8
+FGMRES_SMALL_MAXITERS = 30
+# Card vs CPU: X and the Krylov solution within 1e-9; the FGMRES GALE's
+# residual history within 1e-8 relative, or within √eps·‖C‖: its inner-cycle
+# entries are least-squares estimates from Hessenberg entries that are
+# Gram-form norms √tr((D·LᵀL)²), whose rounding floor is √eps of the norms
+# that cancel (at n=1357 they sit at 2.4e-9·‖C‖ on both devices, 10 %
+# apart, while the true residual after the cycle is 3.6e-13·‖C‖).  The
+# compiled Newton+FGMRES: its history within 3e-4 relative (from its 12th
+# step on, inner solves whose happy breakdowns and compression cuts
+# rounding decides move it by up to 3.0e-5 between the port and the JAX
+# package on the CPU, tests/test_torch_gmres.py) or within the FGMRES
+# target 1e-8 of the first residual, and X within 3e-8: the last step
+# lands below the target at a rounding-decided depth (4.3e-9 on the card,
+# 2.1e-10 on the CPU at n=371, X 2.4e-9 apart, on an H100 80GB HBM3).
+GMRES_REL_TOL = 1e-9
+GMRES_HIST_TOL = 1e-8
+FGMRES_NEWTON_HIST_TOL = 3e-4
+FGMRES_X_TOL = 3e-8
+# Mixed precision (phase 15): `bench.py`'s substage_gale_mixed (16 Penzl
+# shifts, f32 core with 3 refinements, CompiledConfig(120, 10, 32), capacity
+# 160, abstol 1e-10·‖C‖), beside the f64 core; the compiled Newton with f32
+# inner solves (bench.py:855-860: CompiledConfig(150, 10, 64)) at capacity
+# 192, to its end (at most MIXED_NEWTON_MAXITERS steps); one refined
+# shifted solve on the block-ELL pencil.  Card vs CPU (n=1357) and refined vs f64: within 1e-9
+# (both reach the f64 solution, whose CG tolerance 1e-12 the conditioning
+# amplifies); the GALE's residual within 1e-4 (tests/test_torch_mixed.py).
+MIXED_GALE_CFG = CompiledConfig(maxiters=120, compression_interval=10, r_res=32)
+MIXED_GALE_CAPACITY = 160
+MIXED_NEWTON_CFG = CompiledConfig(maxiters=150, compression_interval=10, r_res=64)
+MIXED_NEWTON_MAXITERS = 60
+MIXED_BELL_KRYLOV = Krylov(method="cg", negate=True, preconditioner="block_jacobi",
+                           solve_dtype="float32", refine_iters=3)
+MIXED_REL_TOL = 1e-9
+MIXED_RES_TOL = 1e-4
 
 
 class PhaseError(RuntimeError):
@@ -1529,6 +1602,469 @@ def phase_dense_full():
     return launches
 
 
+# --- phases 14 and 15: GMRES and the mixed-precision core --------------------------
+
+
+def reset_launches():
+    """Every launch count of K1 and K2 to 0 (a path's run starts here)."""
+    for kern in (k1, k2):
+        kern.launches = 0
+        kern.launches_by_dtype.update({torch.float64: 0, torch.float32: 0})
+
+
+def dtype_launches(kern) -> dict:
+    """``{"f64": n, "f32": m}`` of ``kern`` since the last `reset_launches`."""
+    return {"f64": kern.launches_by_dtype[torch.float64],
+            "f32": kern.launches_by_dtype[torch.float32]}
+
+
+class GaleLog(Observer):
+    """The events of one FGMRES GALE solve: its own ``gale_step`` events (the
+    nested ADI solves of an ADI preconditioner excluded), its cycles and
+    Krylov vectors, and the ADI iterations of its preconditioner's solves."""
+
+    def __init__(self):
+        self.steps, self.cycles, self.vectors, self.adi_iters = [], 0, 0, []
+        self.depth = 0
+        self.rn = None
+
+    def observe_gale_start(self, prob, alg):
+        self.depth += 1
+
+    def observe_gale_step(self, iter, X, residual, residual_norm):
+        if self.depth != 1:
+            return
+        self.steps.append((iter, residual_norm))
+        if iter == 0 and X is not None and residual is not None:
+            self.cycles += 1
+        elif X is not None and residual is None:  # a cycle's end: m vectors
+            self.vectors += iter
+        self.rn = residual_norm
+
+    def observe_gale_done(self, iters, X, residual, residual_norm):
+        if self.depth > 1:
+            self.adi_iters.append(iters)
+        self.depth -= 1
+
+
+def run_fgmres_gale(prob):
+    """One public ``solve(prob, GALE_FGMRES)`` with a `GaleLog`; its wall
+    ends in a synchronize."""
+    glog = GaleLog()
+    sync = prob.E.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X = solve(prob, GALE_FGMRES, observer=glog)
+    if sync:
+        torch.cuda.synchronize()
+    return X, glog, time.perf_counter() - t0
+
+
+def run_fgmres_newton(prob, maxiters):
+    """`solve_gare_newton_compiled` with inner FGMRES under the capped
+    compiled ADI (``bench.py``'s Newton+FGMRES family at capacity 192)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        X, info = solve_gare_newton_compiled(
+            prob, shifts=NEWTON_SHIFTS, cfg=FGMRES_CFG, capacity=FGMRES_CAPACITY,
+            maxiters=maxiters, reltol=FGMRES_RELTOL, inner_gmres=NEWTON_FGMRES)
+    return X, info, collections.Counter(str(w.message) for w in caught)
+
+
+def check_history(tag, got, ref, rtol, atol):
+    """Residual histories of equal length within ``rtol`` relative or
+    ``atol``; logs the largest relative gap."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    check(got.shape == ref.shape, f"{tag}: histories of {got.size} and {ref.size} entries")
+    gap = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-300))) if ref.size else 0.0
+    check(bool(np.all(np.abs(got - ref) <= rtol * np.abs(ref) + atol)),
+          f"{tag}: residual histories differ beyond {rtol:g} (largest gap {gap:.3e})")
+    return gap
+
+
+def phase_gmres_small():
+    """GMRES card vs CPU (phase 14, small): `Krylov(method="gmres")` on one
+    shifted DIA operator and the host FGMRES GALE at n=1357, the compiled
+    Newton+FGMRES at n=371."""
+    E, A, B, C = rail_surrogate(N_SMALL)
+    rng = np.random.default_rng(14)
+    W = rng.standard_normal((N_SMALL, 7))
+    sols = {}
+    for dev in (CARD, "cpu"):
+        F = shifted_dia(*dia_pencil(E, A, dtype=torch.float64, device=dev), -1.0)
+        kry0 = blocklinear.krylov_iterations
+        sols[dev] = (blocklinear.prepare(F, GMRES_KRYLOV).solve(torch.as_tensor(W, device=dev)),
+                     blocklinear.krylov_iterations - kry0)
+    rel = rel_diff(sols[CARD][0].cpu(), sols["cpu"][0])
+    log(f"[gmres n={N_SMALL}] Krylov(method='gmres', restart 20, maxiter 3) on Aᵀ − Eᵀ: "
+        f"card vs CPU rel {rel:.3e}, host reads {sols[CARD][1]}/{sols['cpu'][1]}")
+    check(rel <= GMRES_REL_TOL and sols[CARD][1] == sols["cpu"][1],
+          f"[gmres n={N_SMALL}] Krylov GMRES: card and CPU differ")
+
+    outs = {}
+    for dev in (CARD, "cpu"):
+        prob = host_problem("gale", E, A, B, C, dia_pencil(E, A, dtype=torch.float64, device=dev))
+        before = k1.launches
+        X, glog, wall = run_fgmres_gale(prob)
+        if dev == CARD:
+            check(k1.launches > before, f"[gmres n={N_SMALL}] FGMRES GALE: K1 was not launched")
+        outs[dev] = (X, glog, wall, float(lr_norm(prob.C)))
+    (Xg, lg, wg, nC), (Xc, lc, wc, _) = outs[CARD], outs["cpu"]
+    rel_X = lr_rel_diff(Xg, LowRank(L=Xc.L.to(CARD), D=Xc.D.to(CARD), k=Xc.k))
+    floor = math.sqrt(float(torch.finfo(torch.float64).eps)) * nC
+    gap = check_history(f"[gmres n={N_SMALL}] FGMRES GALE", [r for _, r in lg.steps],
+                        [r for _, r in lc.steps], GMRES_HIST_TOL, floor)
+    log(f"[gmres n={N_SMALL}] FGMRES GALE card vs CPU: {lg.cycles}/{lc.cycles} cycles, "
+        f"{lg.vectors}/{lc.vectors} Krylov vectors, events {[i for i, _ in lg.steps]}, "
+        f"preconditioner ADI iterations {lg.adi_iters}/{lc.adi_iters}, final relative "
+        f"residual {lg.rn / nC:.6e}/{lc.rn / nC:.6e}, histories rel gap {gap:.3e}, LDLᵀ rel "
+        f"{rel_X:.3e}; card {wg:.3f} s, CPU {wc:.3f} s")
+    check([i for i, _ in lg.steps] == [i for i, _ in lc.steps] and lg.adi_iters == lc.adi_iters,
+          f"[gmres n={N_SMALL}] FGMRES GALE: event sequences differ")
+    check(rel_X <= GMRES_REL_TOL, f"[gmres n={N_SMALL}] FGMRES GALE: LDLᵀ differ by {rel_X:.3e}")
+
+    E, A, B, C = rail_surrogate(N_TINY)
+    outs = {}
+    for dev in (CARD, "cpu"):
+        prob = newton_problem(E, A, B, C, dev)
+        t0 = time.perf_counter()
+        X, info, _ = run_fgmres_newton(prob, NEWTON_MAXITERS)
+        if dev == CARD:
+            torch.cuda.synchronize()
+        outs[dev] = (LowRank(L=X.L.cpu(), D=X.D.cpu(), k=X.k), info, time.perf_counter() - t0)
+    (Xg, ig, wg), (Xc, ic, wc) = outs[CARD], outs["cpu"]
+    rel_X = lr_rel_diff(Xg, Xc)
+    for dev, info in (("card", ig), ("CPU", ic)):
+        h = info["residuals"]
+        log(f"[gmres n={N_TINY}] Newton+FGMRES {dev}: thetas {info['thetas']}, lambdas "
+            f"{info['linesearch_lams']}, history {['%.6e' % (x / h[0]) for x in h]}")
+    log(f"[gmres n={N_TINY}] Newton+FGMRES card vs CPU: X rel {rel_X:.3e}")
+    gap = check_history(f"[gmres n={N_TINY}] Newton+FGMRES", ig["residuals"], ic["residuals"],
+                        FGMRES_NEWTON_HIST_TOL, FGMRES_RELTOL * ic["residuals"][0])
+    log(f"[gmres n={N_TINY}] Newton+FGMRES card vs CPU: Newton steps "
+        f"{ig['newton_steps']}/{ic['newton_steps']}, rebuilds {ig['shift_rebuilds']}/"
+        f"{ic['shift_rebuilds']}, converged {ig['converged']}/{ic['converged']}, last relative "
+        f"residual {ig['residuals'][-1] / ig['residuals'][0]:.6e}/"
+        f"{ic['residuals'][-1] / ic['residuals'][0]:.6e}, histories rel gap {gap:.3e}, X rel "
+        f"{rel_X:.3e}; card {wg:.3f} s, CPU {wc:.3f} s")
+    for key in ("newton_steps", "shift_rebuilds", "converged"):
+        check(ig[key] == ic[key], f"[gmres n={N_TINY}] Newton+FGMRES: {key} differ")
+    check(rel_X <= FGMRES_X_TOL, f"[gmres n={N_TINY}] Newton+FGMRES: X differ by {rel_X:.3e}")
+
+
+def timer_lines(tag):
+    for name, (sec, calls) in sorted(timers.report().items()):
+        log(f"{tag} timer {name}: {sec:.3f} s in {calls} calls")
+
+
+def report_newton(tag, prob, X, info, wall, launches, peak, n):
+    """Prints one compiled Newton run and applies phase 7's failure rules:
+    non-finite output, or a last residual that the independent evaluation
+    does not confirm."""
+    hist = info["residuals"]
+    rel_solver = hist[-1] / hist[0]
+    theta = info["thetas"][-1] if info["thetas"] else 1.0
+    G_theta = LowRank(L=prob.G.L, D=theta * prob.G.D, k=prob.G.k)
+    norm_Q = lr_norm(prob.Q)
+    rel_ind = float(lr_norm(residual_gare_lowrank(prob.E, prob.A, G_theta, prob.Q, X)) / norm_Q)
+    log(f"{tag}: wall {wall:.3f} s, {info['newton_steps']} Newton steps, converged "
+        f"{info['converged']}, final relative residual {rel_solver:.6e} at theta {theta:.3e} "
+        f"(independent {rel_ind:.6e}), {info['shift_rebuilds']} shift rebuilds, ADI iters "
+        f"{sum(i for i in info['adi_iters'] if i > 0)} ({info['adi_iters'][:8]}...), final rank "
+        f"{X.k}/{X.r}, K1 launches {launches}, Krylov iterations {info.get('krylov', 0)}, "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"{tag}: residual history {['%.3e' % (h / hist[0]) for h in hist]}")
+    K = feedback_K(prob.E, prob.G.L, X)
+    check(all(bool(torch.isfinite(t).all()) for t in (X.L, X.D, K)), f"{tag}: non-finite X or K")
+    check(bool(np.isfinite(hist).all()), f"{tag}: non-finite residual")
+    floor = n * float(torch.finfo(torch.float64).eps)
+    check(abs(rel_ind - rel_solver) <= RESIDUAL_AGREE_TOL * rel_solver + floor,
+          f"{tag}: independent residual {rel_ind:.6e} does not confirm the solver's "
+          f"{rel_solver:.6e}")
+
+
+def phase_gmres_full(E, A, B, C, dev):
+    """GMRES at full size (phase 14): the README's GALE under FGMRES through
+    the public ``solve``; the compiled Newton+FGMRES, its depth cut to
+    `FGMRES_FULL_MAXITERS` steps, and the same solve at n=1357 (at most
+    `FGMRES_SMALL_MAXITERS` steps).
+    Returns K1's launches per path, by dtype."""
+    launches = {}
+    tag = f"[gmres n={N_FULL} gale]"
+    prob = host_problem("gale", E, A, B, C, dia_pencil(E, A, dtype=torch.float64, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timers.reset()
+    timers.enable(True)
+    reset_launches()  # this path's run starts here
+    kry0 = blocklinear.krylov_iterations
+    try:
+        X, glog, wall = run_fgmres_gale(prob)
+    finally:
+        timers.enable(False)
+    launches["gmres_gale_host"] = dtype_launches(k1)  # and ends here
+    k2_n = k2.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nC = float(lr_norm(prob.C))
+    ind = float(lr_norm(residual(prob, X)))
+    log(f"{tag}: wall {wall:.3f} s, {glog.cycles} cycles, {glog.vectors} Krylov vectors, "
+        f"events {[i for i, _ in glog.steps]}, preconditioner ADI iterations {glog.adi_iters}, "
+        f"Krylov iterations {blocklinear.krylov_iterations - kry0}, final rank {X.k}/{X.r}, "
+        f"K1 launches {launches['gmres_gale_host']}, peak device memory {peak:.2f} GiB")
+    log(f"{tag}: relative residual history {['%.3e' % (r / nC) for _, r in glog.steps]}")
+    log(f"{tag}: solver's final residual {glog.rn / nC:.6e}, independent {ind / nC:.6e} "
+        f"(relative to ‖C‖); target {GALE_FGMRES.reltol:g}")
+    timer_lines(tag)
+    check(all(bool(torch.isfinite(t).all()) for t in (X.L, X.D)), f"{tag}: non-finite X")
+    check(np.isfinite(ind) and abs(ind - glog.rn) <= RESIDUAL_AGREE_TOL * glog.rn
+          + N_FULL * float(torch.finfo(torch.float64).eps) * nC,
+          f"{tag}: independent residual {ind:.6e} does not confirm the solver's {glog.rn:.6e}")
+    check(launches["gmres_gale_host"]["f64"] > 0 and k2_n == 0, f"{tag}: K1 not launched, or K2")
+    del X, prob
+
+    for n, maxiters, key in ((N_FULL, FGMRES_FULL_MAXITERS, "gare_newton_fgmres"),
+                             (N_SMALL, FGMRES_SMALL_MAXITERS, "gare_newton_fgmres_n1357")):
+        En, An, Bn, Cn = (E, A, B, C) if n == N_FULL else rail_surrogate(n)
+        tag = f"[gmres n={n} newton]"
+        prob = newton_problem(En, An, Bn, Cn, dev)
+        log(f"{tag}: capacity {FGMRES_CAPACITY}, {FGMRES_CFG}, reltol {FGMRES_RELTOL:g}, "
+            f"{NEWTON_SHIFTS}, {NEWTON_FGMRES}; Newton steps capped at {maxiters}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # this path's run starts here
+        kry0 = blocklinear.krylov_iterations
+        t0 = time.perf_counter()
+        X, info, warned = run_fgmres_newton(prob, maxiters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[key] = dtype_launches(k1)  # and ends here
+        info["krylov"] = blocklinear.krylov_iterations - kry0
+        report_newton(tag, prob, X, info, wall, launches[key],
+                      torch.cuda.max_memory_allocated() / 2**30, n)
+        for text, count in warned.items():
+            log(f"{tag} warning ({count}x): {text}")
+        check(launches[key]["f64"] > 0, f"{tag}: K1 was not launched")
+        del X, prob
+    return launches
+
+
+def mixed_krylov(refine_iters=3):
+    """The f32-core Krylov configuration of ``bench.py``'s mixed GALE
+    (real shifts: CG on the negated operator)."""
+    return dataclasses.replace(default_dia_krylov(torch.float64, False),
+                               solve_dtype="float32", refine_iters=refine_iters)
+
+
+_PENZL = {}  # the 16 Penzl shifts of the pencil, by size (host only)
+
+
+def run_gale_mixed(E, A, C, dev, solve_dtype):
+    """``bench.py``'s ``substage_gale_mixed`` on ``dev``: 16 Penzl shifts,
+    the compiled ADI (`MIXED_GALE_CFG`, capacity 160, abstol 1e-10·‖C‖)
+    with an f32 core and 3 refinements (``solve_dtype="float32"``) or the
+    f64 core (``None``).  Returns a dict of its results."""
+    n = E.shape[0]
+    t0 = time.perf_counter()
+    if n not in _PENZL:
+        _PENZL[n] = np.asarray([v.real for v in heuristic_shifts_host(E, A, 16, 20, 20)])
+    shifts = _PENZL[n]
+    Eo, Ao = dia_pencil(E, A, dtype=torch.float64, device=dev)
+    kry = dataclasses.replace(mixed_krylov(), solve_dtype=solve_dtype)
+    lus = build_dia_shift_ops(Eo, Ao, shifts, krylov_cfg=kry)
+    Cf = lowrank(torch.as_tensor(np.ascontiguousarray(C.T), device=dev))
+    norm_c = float(lr_norm(Cf))
+    X0 = lr_zero(n, MIXED_GALE_CAPACITY, torch.float64, dev)
+    res0 = residual_gale_lowrank(Eo, Ao, Cf, X0, r_out=MIXED_GALE_CFG.r_res)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    kry0, sol0 = blocklinear.krylov_iterations, blocklinear.krylov_solves
+    t0 = time.perf_counter()
+    X, _, iters, res = compiled.adi_compiled(
+        Eo, Ao, _mask_cols(res0.L, res0.k), res0.D, res0.k, X0, shifts, 1e-10 * norm_c,
+        MIXED_GALE_CFG, lus)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    true = float(lr_norm(residual_gale_lowrank(Eo, Ao, Cf, X, r_out=2 * MIXED_GALE_CFG.r_res)))
+    return {"X": X, "iters": iters, "tracked": float(res) / norm_c, "true": true / norm_c,
+            "wall": wall, "setup": setup, "krylov": blocklinear.krylov_iterations - kry0,
+            "solves": blocklinear.krylov_solves - sol0, "prec_dtype": lus.prec_inv.dtype}
+
+
+def refined_cases(E, A, dev):
+    """The refined solvers of phase 15 on ``dev`` at the pencil of (E, A):
+    one real and one pair slot of a pair-encoded DIA shift buffer (f32 core,
+    3 refinements) and the refined block-ELL solve of ``Aᵀ + μEᵀ``."""
+    scale = float(np.mean(np.abs(A.diagonal())) / np.mean(np.abs(E.diagonal())))
+    buf = np.asarray([[-scale, 0.0], [-scale, 0.5 * scale]])
+    Eo, Ao = dia_pencil(E, A, dtype=torch.float64, device=dev)
+    kry = dataclasses.replace(default_dia_krylov(torch.float64, True), solve_dtype="float32",
+                              refine_iters=3)
+    ops = build_dia_shift_ops(Eo, Ao, buf, krylov_cfg=kry)
+    Eb, Ab = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+    return {"dia real slot": ops.core_solver(0),
+            "dia pair slot": ops.pair_solver(1, float(buf[1, 1])),
+            "bell": blocklinear.prepare(shifted_bell(Eb, Ab, -scale), MIXED_BELL_KRYLOV)}
+
+
+def phase_mixed_small():
+    """The mixed-precision core card vs CPU at n=1357 (phase 15, small): the
+    refined solvers on a real and a pair DIA slot and on block-ELL, and the
+    compiled GALE with the f32 core."""
+    E, A, B, C = rail_surrogate(N_SMALL)
+    rng = np.random.default_rng(15)
+    W = rng.standard_normal((N_SMALL, 7))
+    outs = {}
+    for dev in (CARD, "cpu"):
+        got = {}
+        for name, solver in refined_cases(E, A, dev).items():
+            check(isinstance(solver, blocklinear.RefinedKrylovSolver)
+                  and solver.inner.op.dtype == torch.float32, f"[mixed] {name}: not refined in f32")
+            rhs = W if name != "dia pair slot" else np.concatenate([W, np.zeros_like(W)], axis=1)
+            reset_launches()
+            got[name] = (solver.solve(torch.as_tensor(rhs, device=dev)),
+                         dtype_launches(k1), dtype_launches(k2))
+        outs[dev] = got
+    for name, (x, l1, l2) in outs[CARD].items():
+        rel = rel_diff(x.cpu(), outs["cpu"][name][0])
+        log(f"[mixed n={N_SMALL}] refined {name}: card vs CPU rel {rel:.3e}; K1 {l1}, K2 {l2}")
+        check(rel <= MIXED_REL_TOL, f"[mixed n={N_SMALL}] refined {name}: card and CPU differ")
+        kern = l2 if name == "bell" else l1
+        check(kern["f32"] > 0 and kern["f64"] > 0,
+              f"[mixed n={N_SMALL}] refined {name}: f32 core or f64 residual not on the kernel")
+    runs = {dev: run_gale_mixed(E, A, C, dev, "float32") for dev in (CARD, "cpu")}
+    g, c = runs[CARD], runs["cpu"]
+    log(f"[mixed n={N_SMALL}] compiled GALE, f32 core: ADI iterations {g['iters']}/{c['iters']}, "
+        f"true relative residual {g['true']:.6e}/{c['true']:.6e}, Krylov iterations "
+        f"{g['krylov']}/{c['krylov']} in {g['solves']}/{c['solves']} solves; card "
+        f"{g['wall']:.3f} s, CPU {c['wall']:.3f} s")
+    check(g["iters"] == c["iters"], f"[mixed n={N_SMALL}] GALE: ADI iterations differ")
+    check(abs(g["true"] - c["true"]) <= MIXED_RES_TOL * c["true"] and g["true"] <= 1e-10,
+          f"[mixed n={N_SMALL}] GALE: residuals differ or miss 1e-10")
+
+
+def phase_mixed_full(E, A, B, C, dev):
+    """The mixed-precision core at full size (phase 15): the compiled GALE
+    with the f32 core and with the f64 core; the compiled Newton with f32
+    inner solves (at most `MIXED_NEWTON_MAXITERS` steps); one refined
+    shifted solve on the block-ELL pencil against the f64 solve.  Returns
+    the launches per path, by kernel and dtype."""
+    k1_paths, k2_paths = {}, {}
+    for sd, key in (("float32", "gale_compiled_f32_core"), (None, "gale_compiled_f64_core")):
+        tag = f"[mixed n={N_FULL} gale {key.split('_')[2]} core]"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # this path's run starts here
+        out = run_gale_mixed(E, A, C, dev, sd)
+        k1_paths[key] = dtype_launches(k1)  # and ends here
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        X = out["X"]
+        log(f"{tag}: wall {out['wall']:.3f} s (set-up {out['setup']:.3f} s: Penzl shifts, "
+            f"operators, {out['prec_dtype']} block inverses), ADI iterations {out['iters']}, "
+            f"tracked relative residual {out['tracked']:.6e}, true {out['true']:.6e} (JAX "
+            f"package at n=1357: 7.35e-11), Krylov iterations {out['krylov']} in "
+            f"{out['solves']} solves ({out['krylov'] / max(out['solves'], 1):.1f} a solve), rank "
+            f"{X.k}/{X.r}, K1 launches {k1_paths[key]}, peak device memory {peak:.2f} GiB")
+        check(all(bool(torch.isfinite(t).all()) for t in (X.L, X.D)), f"{tag}: non-finite X")
+        floor = HOST_FLOOR_FACTOR * N_FULL * float(torch.finfo(torch.float64).eps)
+        check(np.isfinite(out["true"])
+              and abs(out["true"] - out["tracked"]) <= RESIDUAL_AGREE_TOL * out["tracked"] + floor,
+              f"{tag}: the true residual {out['true']:.3e} does not confirm the tracked one")
+        check(k1_paths[key]["f64"] > 0 and (sd is None or k1_paths[key]["f32"] > 0),
+              f"{tag}: K1 was not launched in both dtypes")
+        del X, out
+
+    tag = f"[mixed n={N_FULL} newton]"
+    prob = newton_problem(E, A, B, C, dev)
+    log(f"{tag}: inner_solve_dtype float32, capacity {FGMRES_CAPACITY}, {MIXED_NEWTON_CFG}, "
+        f"reltol {NEWTON_RELTOL:g}, {NEWTON_SHIFTS}; at most {MIXED_NEWTON_MAXITERS} "
+        f"Newton steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # this path's run starts here
+    kry0 = blocklinear.krylov_iterations
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        X, info = solve_gare_newton_compiled(
+            prob, shifts=NEWTON_SHIFTS, cfg=MIXED_NEWTON_CFG, capacity=FGMRES_CAPACITY,
+            maxiters=MIXED_NEWTON_MAXITERS, reltol=NEWTON_RELTOL, inner_solve_dtype="float32")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_paths["gare_newton_f32_core"] = dtype_launches(k1)  # and ends here
+    info["krylov"] = blocklinear.krylov_iterations - kry0
+    report_newton(tag, prob, X, info, wall, k1_paths["gare_newton_f32_core"],
+                  torch.cuda.max_memory_allocated() / 2**30, N_FULL)
+    for text, count in collections.Counter(str(w.message) for w in caught).items():
+        log(f"{tag} warning ({count}x): {text}")
+    check(k1_paths["gare_newton_f32_core"]["f32"] > 0, f"{tag}: K1 f32 was not launched")
+    del X, prob
+
+    tag = f"[mixed n={N_FULL} bell]"
+    Eb, Ab = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+    scale = float(np.mean(np.abs(A.diagonal())) / np.mean(np.abs(E.diagonal())))
+    F = shifted_bell(Eb, Ab, -scale)
+    del Eb, Ab
+    W = torch.as_tensor(np.random.default_rng(16).standard_normal((N_FULL, 7)), device=dev)
+    sols = {}
+    for name, alg in (("f32 core", MIXED_BELL_KRYLOV),
+                      ("f64", dataclasses.replace(MIXED_BELL_KRYLOV, solve_dtype=None))):
+        solver = blocklinear.prepare(F, alg)
+        torch.cuda.synchronize()
+        reset_launches()  # this path's run starts here
+        kry0, sol0 = blocklinear.krylov_iterations, blocklinear.krylov_solves
+        t0 = time.perf_counter()
+        x = solver.solve(W)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2_paths[f"bell_refined_solve_{name.split()[0]}"] = dtype_launches(k2)  # and ends here
+        res = float(torch.linalg.norm(F.mm(x) - W) / torch.linalg.norm(W))
+        sols[name] = x
+        log(f"{tag} {name}: wall {wall:.3f} s, Krylov iterations "
+            f"{blocklinear.krylov_iterations - kry0} in {blocklinear.krylov_solves - sol0} "
+            f"solves, relative residual {res:.3e}, K2 launches "
+            f"{k2_paths[f'bell_refined_solve_{name.split()[0]}']}")
+        check(bool(torch.isfinite(x).all()) and res <= 1e-10, f"{tag} {name}: residual {res:.3e}")
+    rel = rel_diff(sols["f32 core"], sols["f64"])
+    log(f"{tag}: refined vs f64 solution rel {rel:.3e}")
+    check(rel <= MIXED_REL_TOL, f"{tag}: the refined solve differs from the f64 one by {rel:.3e}")
+    check(k2_paths["bell_refined_solve_f32"]["f32"] > 0, f"{tag}: K2 f32 was not launched")
+    return k1_paths, k2_paths
+
+
+def by_dtype(launches: dict, paths: dict) -> None:
+    """Adds each path's ``{"f64": n, "f32": m}`` to ``launches`` as the
+    entries ``"<path>.f64"`` and ``"<path>.f32"``."""
+    for path, counts in paths.items():
+        for dname, count in counts.items():
+            launches[f"{path}.{dname}"] = count
+
+
+def phase_gmres(E, A, B, C, dev, k1_launches):
+    """Phase 14: card vs CPU, then the full-size paths under a
+    `ProductLog`.  Adds K1's launches per path and dtype to
+    ``k1_launches``; returns the kernels' max abs errors."""
+    phase_gmres_small()
+    with ProductLog() as products:
+        paths = phase_gmres_full(E, A, B, C, dev)
+    by_dtype(k1_launches, paths)
+    return products.check(f"[gmres n={N_FULL}]")
+
+
+def phase_mixed(E, A, B, C, dev, k1_launches, k2_launches):
+    """Phase 15: card vs CPU, then the full-size paths under a
+    `ProductLog`.  Adds K1's and K2's launches per path and dtype; returns
+    the kernels' max abs errors."""
+    phase_mixed_small()
+    with ProductLog() as products:
+        paths1, paths2 = phase_mixed_full(E, A, B, C, dev)
+    by_dtype(k1_launches, paths1)
+    by_dtype(k2_launches, paths2)
+    return products.check(f"[mixed n={N_FULL}]")
+
+
 def checked(tag, kern, run):
     """``run()``, a full-size main path that returns its launches, under a
     `ProductLog`; then the kernels against their plain versions at every
@@ -1558,7 +2094,14 @@ def main() -> int:
                     help="build the kernels and run only the host-API phases 8 to 11")
     ap.add_argument("--dense-only", action="store_true",
                     help="build the kernels and run only the dense phases 12 and 13")
+    ap.add_argument("--gmres-only", action="store_true",
+                    help="build the kernels and run only the GMRES phase 14 (with "
+                         "--mixed-only: phases 14 and 15)")
+    ap.add_argument("--mixed-only", action="store_true",
+                    help="build the kernels and run only the mixed-precision phase 15")
     args = ap.parse_args()
+    only = args.newton_only or args.host_only or args.dense_only or args.gmres_only \
+        or args.mixed_only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1583,6 +2126,13 @@ def main() -> int:
             phase_complex()
             phase_host_full(E, A, B, C, dev)
             phase_host_bell(E, A, B, C, bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev))
+        elif args.gmres_only or args.mixed_only:
+            k1_launches, k2_launches = {}, {}
+            if args.gmres_only:
+                phase_gmres(E, A, B, C, dev, k1_launches)
+            if args.mixed_only:
+                phase_mixed(E, A, B, C, dev, k1_launches, k2_launches)
+            log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
         else:
             k1_err, k1_t, k1_cold, k1_lib, k1_bound = phase_kernels(E, A, dev)
             t0 = time.perf_counter()
@@ -1617,10 +2167,15 @@ def main() -> int:
             launches, err = checked(f"[dense n={N_DENSE}]", "K1", phase_dense_full)
             k1_launches.update(launches)
             k1_err = max(k1_err, err)
+            errs = phase_gmres(E, A, B, C, dev, k1_launches)
+            k1_err = max(k1_err, errs.get("K1", 0.0))
+            errs = phase_mixed(E, A, B, C, dev, k1_launches, k2_launches)
+            k1_err = max(k1_err, errs.get("K1", 0.0))
+            k2_err = max(k2_err, errs.get("K2", 0.0))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if not (args.newton_only or args.host_only or args.dense_only):
+    if not only:
         key1, key2 = ("mmT", "float64", 48), ("mm", "float64", 48)
         # K1's time is the cold one: its operands are not in the L2, as its
         # bound assumes.

@@ -26,8 +26,8 @@ from .lowrank import (
 from .models import (
     ADI, BartelsStewart, DRESolution, GALEProblem, GAREProblem, GDREProblem, GMRES,
     Kronecker, Newton, Parareal, Ros1, Ros2, Ros3, Ros4, init, residual,
-    sign_function_cache, solve, solve_gale_dense, solve_gale_host, solve_gale_kronecker,
-    solve_gdre_dense)
+    sign_function_cache, solve, solve_gale_dense, solve_gale_gmres, solve_gale_host,
+    solve_gale_kronecker, solve_gdre_dense)
 from .models import shifts as Shifts
 from .ops.blocklinear import (
     Backslash, BlockLinearProblem, Krylov, ShermanMorrisonWoodbury, solve_blocklinear)
@@ -45,5 +45,5 @@ __all__ = [
     "Ros1", "Ros2", "Ros3", "Ros4", "Parareal",
     "solve", "init", "residual", "Shifts",
     "solve_gale_dense", "solve_gale_host", "solve_gale_kronecker",
-    "sign_function_cache", "solve_gdre_dense",
+    "sign_function_cache", "solve_gdre_dense", "solve_gale_gmres",
 ]

@@ -15,7 +15,7 @@ import torch
 
 from .lowrank import LowRank
 from .models import problems, shifts
-from .models.compiled import DiaShiftOps, ShiftLUs, SparseShiftOps
+from .models.compiled import CappedADI, DiaShiftOps, ShiftLUs, SparseShiftOps
 from .models.lyapunov_dense import SignFunctionCache
 from .models.problems import GALEProblem, GAREProblem, GDREProblem
 from .ops.blocklinear import Backslash, Krylov, ShermanMorrisonWoodbury
@@ -94,7 +94,8 @@ _FORCING = {"quadratic_forcing": problems.quadratic_forcing,
 
 def config_from(cfg):
     """The port's config for one of the JAX package's (or ``None``), read
-    field by field; dispatches on the class name: `ADI`, `Newton`, `Ros1`,
+    field by field; dispatches on the class name: `ADI`, `GMRES` (its
+    ``preconditioner`` converted in turn), `CappedADI`, `Newton`, `Ros1`,
     `Ros2`, the four shift strategies, `Krylov`, `ShermanMorrisonWoodbury`
     and `Backslash`.  A strategy's list of precomputed shift values becomes
     a tuple of Python ``complex``; the named forcing functions become the
@@ -109,6 +110,14 @@ def config_from(cfg):
             inner_alg=config_from(cfg.inner_alg),
             compression_interval=cfg.compression_interval, compression=cfg.compression,
             warn_convergence=cfg.warn_convergence, capacity=cfg.capacity)
+    if name == "GMRES":
+        return problems.GMRES(
+            maxiters=cfg.maxiters, maxrestarts=cfg.maxrestarts, reltol=cfg.reltol,
+            abstol=cfg.abstol, ignore_initial_guess=cfg.ignore_initial_guess,
+            compression=cfg.compression, preconditioner=config_from(cfg.preconditioner),
+            warn_convergence=cfg.warn_convergence)
+    if name == "CappedADI":
+        return CappedADI(maxiters=cfg.maxiters, r_in=cfg.r_in, capacity=cfg.capacity)
     if name == "Newton":
         forcing = _FORCING.get(getattr(cfg.inexact_forcing, "__name__", None),
                                cfg.inexact_forcing)

@@ -8,7 +8,8 @@ blocks (see `ops.sparse.BellOp`).  The CUDA source is
 
 The wrapper `bell_mm` takes the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; any other device raises.
-`launches` counts kernel launches.
+`launches` counts kernel launches, `launches_by_dtype` the same launches by
+dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from . import build, empty_in_layout
 
 #: Number of K2 launches in this process (the plain version never counts).
 launches = 0
+#: The same launches by operand dtype (``torch.float64``, ``torch.float32``).
+launches_by_dtype = {torch.float64: 0, torch.float32: 0}
 
 _NAME = "bell_spmm"
 _ARGTYPES = [
@@ -108,6 +111,7 @@ def _launch(cols, data, X):
     if err != 0:
         raise RuntimeError(f"bell_spmm: kernel launch failed with CUDA error {err}")
     launches += 1
+    launches_by_dtype[X.dtype] += 1
     return Y
 
 

@@ -9,7 +9,8 @@ The wrappers `dia_mm` (column-major ``(N, q)``) and `dia_mm_t` (lane-major
 ``(q, N)``, with the optional ``α·Y + β·Z`` epilogue) take the plain version
 for tensors on the CPU and launch the kernel for tensors on a CUDA device;
 any other device raises.  The result has the operand's layout
-(`kernels.empty_in_layout`).  `launches` counts kernel launches.
+(`kernels.empty_in_layout`).  `launches` counts kernel launches,
+`launches_by_dtype` the same launches by dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from . import build, empty_in_layout
 
 #: Number of K1 launches in this process (the plain version never counts).
 launches = 0
+#: The same launches by operand dtype (``torch.float64``, ``torch.float32``).
+launches_by_dtype = {torch.float64: 0, torch.float32: 0}
 
 MAX_DIAGS = 64  # DIA_MAX_DIAGS in csrc/dia_spmm.cu
 
@@ -147,4 +150,5 @@ def _launch(data, offsets, X, axis, Z=None, alpha=1.0, beta=0.0):
     if err != 0:
         raise RuntimeError(f"dia_spmm: kernel launch failed with CUDA error {err}")
     launches += 1
+    launches_by_dtype[X.dtype] += 1
     return Y

@@ -1,18 +1,20 @@
 """Solver dispatch: the `solve` / `init` verbs (port of the JAX package's
 ``models/__init__.py``), and the solvers behind them.
 
-Ported branches: GALE by the host ADI (low-rank right-hand side), by the
-dense sign-function solver or the SciPy oracle (`BartelsStewart`) and by
-the Kronecker solve; low-rank GDRE by Ros1 and Ros2, dense GDRE by Ros1–4;
-GARE by Kleinman–Newton with an ADI inner solver.  GMRES and Parareal raise
-`NotImplementedError` naming their ROADMAP item; a problem and algorithm
-that do not fit raise `TypeError` as in the JAX package.
+Ported branches: GALE by the host ADI or by (F)GMRES (low-rank
+right-hand side), by the dense sign-function solver or the SciPy oracle
+(`BartelsStewart`) and by the Kronecker solve; low-rank GDRE by Ros1 and
+Ros2, dense GDRE by Ros1–4; GARE by Kleinman–Newton with an ADI or GMRES
+inner solver.  Parareal raises `NotImplementedError` naming its ROADMAP
+item; a problem and algorithm that do not fit raise `TypeError` as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 from . import shifts
 from .adi import ADISolver, solve_gale_adi
+from .gmres import solve_gale_gmres
 from .lyapunov_dense import (
     _dense, sign_function_cache, solve_gale_dense, solve_gale_host, solve_gale_kronecker)
 from .newton import solve_gare_newton
@@ -37,7 +39,7 @@ def solve(prob, alg, **kwargs):
         if isinstance(alg, ADI):
             return solve_gale_adi(prob, alg, **kwargs)
         if isinstance(alg, GMRES):
-            raise _not_ported("the GALE solver GMRES", 6)
+            return solve_gale_gmres(prob, alg, **kwargs)
         if isinstance(alg, BartelsStewart):
             kwargs.pop("observer", None)
             if alg.host:
@@ -79,7 +81,8 @@ __all__ = [
     "GALEProblem", "GDREProblem", "GAREProblem", "DRESolution",
     "ADI", "BartelsStewart", "GMRES", "Kronecker", "Newton", "Parareal",
     "Ros1", "Ros2", "Ros3", "Ros4", "quadratic_forcing", "superlinear_forcing",
-    "residual", "solve", "init", "ADISolver", "solve_gale_adi", "solve_gare_newton",
+    "residual", "solve", "init", "ADISolver", "solve_gale_adi", "solve_gale_gmres",
+    "solve_gare_newton",
     "solve_gdre_lowrank_ros1", "solve_gdre_lowrank_ros2", "feedback_K", "shifts",
     "solve_gale_dense", "solve_gale_host", "solve_gale_kronecker",
     "sign_function_cache", "solve_gdre_dense",

@@ -4,7 +4,9 @@ Kleinman–Newton GARE solver: ADI with precomputed shifted operators.
 Port of the JAX package's ``models/compiled.py``: `ros1_step_compiled`,
 `ros2_step_compiled`, the sweeps `solve_gdre_ros1_compiled` /
 `solve_gdre_ros2_compiled` and the Newton solver
-`solve_gare_newton_compiled` → `adi_compiled` → block-Jacobi preconditioned
+`solve_gare_newton_compiled` (ADI or, with ``inner_gmres``, FGMRES under a
+capped compiled-ADI preconditioner, `make_compiled_adi_preconditioner`) →
+`adi_compiled` → block-Jacobi preconditioned
 Krylov solves over precomputed shifted operators (`DiaShiftOps` for banded
 pencils, `SparseShiftOps` for block-ELL ones), or LU solves over
 precomputed factorizations (`ShiftLUs` for dense ones), with an SMW
@@ -40,12 +42,13 @@ import torch
 
 from ..lowrank import (
     LowRank, _mask_cols, lr_add, lr_append, lr_compress, lr_norm, lr_scale,
-    lr_with_capacity, lr_zero)
+    lr_slice_active, lr_with_capacity, lr_zero)
 from ..ops.blocklinear import (
     DenseLUSolver, Krylov, KrylovSolver, PairBlockPrec, PairSMWSolver,
-    SMWSolver, block_jacobi_inverses)
+    RefinedKrylovSolver, SMWSolver, block_jacobi_inverses, solve_dtype)
 from ..ops.dia import DiaOp, DiaPairOp
-from ..ops.operators import DenseOp, LowRankUpdateOp, lin_comb, lr_update, scale_op
+from ..ops.operators import (
+    DenseOp, LowRankUpdateOp, lin_comb, lr_update, op_astype, scale_op)
 from ..ops.sparse import BellOp
 from ..utils.callbacks import notify
 from .adi import _in_dtype, _residual_norm
@@ -77,11 +80,14 @@ class DiaShiftOps:
     and the extras hold the ``Eᵀ`` DIA data and stacked-real complex
     block inverses for the conjugate-pair slots; `pair_solver` then solves
     the double step's complex system as an all-real 2n block system
-    (`ops.dia.DiaPairOp`)."""
+    (`ops.dia.DiaPairOp`).  With ``cfg.solve_dtype`` set (e.g. "float32"
+    under f64 data), both return a mixed-precision `RefinedKrylovSolver`:
+    the Krylov core on the data cast to that dtype, with block inverses
+    built in it, and the refinement's residual on the full-dtype data."""
 
     data: torch.Tensor  # (ns, ndiag, N): the shifted operators, pre-transposed
     data_t: torch.Tensor  # (ns, ndiag, N)
-    prec_inv: torch.Tensor  # (ns, nb, bs, bs) block-Jacobi inverses
+    prec_inv: torch.Tensor  # (ns, nb, bs, bs) block-Jacobi inverses, solve dtype
     offsets: tuple
     n: int
     nnz_: int
@@ -98,11 +104,25 @@ class DiaShiftOps:
         return DiaOp(data=self.data[idx], data_t=self.data_t[idx],
                      offsets=self.offsets, n=self.n, nnz_=self.nnz_)
 
-    def core_solver(self, idx: int) -> KrylovSolver:
-        return KrylovSolver(op=self._dia(idx), prec=self.prec_inv[idx],
-                            cfg=self.cfg)
+    def _refined(self, op, lo_op, prec, cfg: Krylov):
+        """`KrylovSolver` on ``op``, or, when ``cfg.solve_dtype`` differs
+        from the data's dtype, a `RefinedKrylovSolver` with its core on
+        ``lo_op(dtype)``."""
+        if cfg.solve_dtype is not None:
+            lo = solve_dtype(cfg.solve_dtype, op.dtype)
+            if lo != op.dtype:
+                inner = KrylovSolver(op=lo_op(lo), prec=prec,
+                                     cfg=dataclasses.replace(cfg, solve_dtype=None))
+                return RefinedKrylovSolver(op_hi=op, inner=inner,
+                                           iters=cfg.refine_iters)
+        return KrylovSolver(op=op, prec=prec, cfg=cfg)
 
-    def pair_solver(self, idx: int, b: float) -> KrylovSolver:
+    def core_solver(self, idx: int):
+        op = self._dia(idx)
+        return self._refined(op, lambda lo: op_astype(op, lo),
+                             self.prec_inv[idx], self.cfg)
+
+    def pair_solver(self, idx: int, b: float):
         """Stacked-real solver for slot ``idx`` holding a conjugate pair
         ``a ± b·i``: the 2n system ``[[F, −bEᵀ], [bEᵀ, F]]`` with
         ``F = data[idx]`` (already shifted by ``a``)."""
@@ -110,12 +130,14 @@ class DiaShiftOps:
             raise ValueError("shift buffer was not pair-encoded")
         Et = DiaOp(data=self.et_data, data_t=self.et_data_t,
                    offsets=self.offsets, n=self.n, nnz_=self.nnz_)
+        op = DiaPairOp(F=self._dia(idx), Et=Et, b=float(b))
         pi = self.pair_index[idx]
-        return KrylovSolver(
-            op=DiaPairOp(F=self._dia(idx), Et=Et, b=float(b)),
-            prec=PairBlockPrec(re=self.pair_prec_re[pi],
-                               im=self.pair_prec_im[pi]),
-            cfg=self.pair_cfg)
+        prec = PairBlockPrec(re=self.pair_prec_re[pi], im=self.pair_prec_im[pi])
+
+        def lo_op(lo):
+            return DiaPairOp(F=op_astype(op.F, lo), Et=op_astype(Et, lo), b=op.b)
+
+        return self._refined(op, lo_op, prec, self.pair_cfg)
 
 
 def default_dia_krylov(dtype: torch.dtype, complex_shifts: bool) -> Krylov:
@@ -199,15 +221,18 @@ def build_dia_shift_ops(E: DiaOp, A0: DiaOp, shifts,
     data, data_t = _shifted_dia_data(At.data, At.data_t, Et.data, Et.data_t,
                                      a_part)
 
-    key = ("pencil_blocks", PREC_BS, str(dt))
+    # The block inverses are built in the Krylov core's dtype: the low one
+    # of a mixed-precision core, from the pencil cast to it.
+    pdt = dt if krylov_cfg.solve_dtype is None else solve_dtype(krylov_cfg.solve_dtype, dt)
+    key = ("pencil_blocks", PREC_BS, str(pdt))
     if block_cache is not None and key in block_cache:
         blkA, blkE = block_cache[key]
     else:
-        blkA = At.diag_blocks(PREC_BS)
-        blkE = Et.diag_blocks(PREC_BS, pad_identity=False)
+        blkA = op_astype(At, pdt).diag_blocks(PREC_BS)
+        blkE = op_astype(Et, pdt).diag_blocks(PREC_BS, pad_identity=False)
         if block_cache is not None:
             block_cache[key] = (blkA, blkE)
-    inv = _shift_block_inverses(blkA, blkE, a_part)
+    inv = _shift_block_inverses(blkA, blkE, a_part.to(pdt))
 
     pair_kw = {}
     if has_pairs:
@@ -802,6 +827,43 @@ class PerStepHeuristic:
     km: int = 20
 
 
+@dataclasses.dataclass(frozen=True)
+class CappedADI:
+    """The compiled-ADI FGMRES preconditioner's configuration (the
+    ``preconditioner`` of the ``inner_gmres`` config of
+    `solve_gare_newton_compiled`): ``maxiters`` ADI iterations on incoming
+    vectors cut or padded to ``r_in`` columns, into an iterate of
+    ``capacity`` columns.  Mirrors the reference's
+    ``ADI(maxiters=t, compression_interval=2t)`` preconditioner."""
+
+    maxiters: int = 15
+    r_in: int = 64
+    capacity: int = 256
+
+
+def make_compiled_adi_preconditioner(E, F, lus, shifts, *, maxiters: int,
+                                     r_in: int = 64, capacity: int = 256,
+                                     compression_interval: int = 1000):
+    """A capped-ADI GALE preconditioner over the prepared shifted cores
+    ``lus`` of ``shifts``: returns ``precond(GALEProblem) -> LowRank`` for
+    `models.gmres.solve_gale_gmres`.  ``abstol = 0``, so exactly
+    ``maxiters`` iterations run (fewer only if the residual vanishes).
+    Each incoming right-hand side is brought to ``r_in`` storage columns by
+    `lr_with_capacity` (a wider one is cut there, as in the JAX package)."""
+    n = E.shape[0]
+    pcfg = CompiledConfig(maxiters=maxiters,
+                          compression_interval=compression_interval, r_res=r_in)
+
+    def precond(p):
+        C = lr_with_capacity(p.C, r_in)
+        X0 = lr_zero(n, capacity, F.dtype, C.L.device)
+        X, _, _, _ = adi_compiled(E, F, _mask_cols(C.L, C.k), C.D, C.k, X0,
+                                  shifts, 0.0, pcfg, lus)
+        return X
+
+    return precond
+
+
 def _linesearch_combine(X_prev: LowRank, X_tilde: LowRank, lam: float,
                         capacity: int) -> LowRank:
     """``(1−λ)·X_prev + λ·X̃`` compressed back to the iterate capacity."""
@@ -825,6 +887,30 @@ def _newton_step_compiled(E, A, B, X: LowRank, K, res: LowRank, shifts,
     X_new, _, iters, ares = adi_compiled(E, F, W0, res.D, res.k, X, shifts,
                                          inner_abstol, cfg, shift_lus)
     return X_new, iters, ares
+
+
+def _newton_step_fgmres(E, A, B, Ct, X: LowRank, K, shifts, shift_lus, inner_gmres,
+                        inner_abstol: float, capacity: int, observer) -> LowRank:
+    """One Kleinman–Newton step by FGMRES: the closed-loop GALE with
+    ``F = A − BK`` and right-hand side ``[Cᵀ, EᵀL·(BᵀLD)ᵀ]``, preconditioned
+    by the capped compiled ADI (`make_compiled_adi_preconditioner`) over
+    the step's shifted cores; the result compressed to ``capacity``."""
+    from .gmres import solve_gale_gmres
+    from .problems import GALEProblem
+
+    F = lr_update(A, -1.0, B, K)
+    EtL = E.tmm(X.L)
+    BtLD = (B.T @ X.L) @ X.D
+    qm = Ct.shape[1] + B.shape[1]
+    RHS = LowRank(L=torch.cat([Ct, EtL @ BtLD.T], dim=1),
+                  D=torch.eye(qm, dtype=X.dtype, device=X.device), k=qm)
+    spec = inner_gmres.preconditioner
+    pre = make_compiled_adi_preconditioner(E, F, shift_lus, shifts, maxiters=spec.maxiters,
+                                           r_in=spec.r_in, capacity=spec.capacity)
+    X = lr_slice_active(solve_gale_gmres(
+        GALEProblem(E, F, RHS), dataclasses.replace(inner_gmres, preconditioner=pre),
+        abstol=inner_abstol, initial_guess=X, observer=observer))
+    return lr_compress(lr_with_capacity(X, max(X.r, capacity)), r_out=capacity)
 
 
 def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
@@ -860,22 +946,21 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
     splitting a stage jump whose entry residual exceeds 1e3 × the previous
     stage's exit residual.
 
-    ``inner_gmres`` (Newton with inner FGMRES) and ``inner_solve_dtype``
-    (mixed-precision inner solves) are not ported and raise.
+    ``inner_gmres``: a `GMRES` config whose ``preconditioner`` is a
+    `CappedADI`; each Newton step then solves its closed-loop GALE by
+    matrix-valued FGMRES (`models.gmres.solve_gale_gmres`) preconditioned by
+    the capped compiled ADI over the step's shifted cores, and compresses
+    the result back to ``capacity`` (its ``adi_iters`` entry is ``-1``).
+    ``inner_solve_dtype`` (e.g. "float32"): without ``krylov_cfg``, the
+    shifted cores' default Krylov configuration gets this ``solve_dtype``,
+    so banded cores solve in a low-precision core with iterative refinement
+    (`DiaShiftOps`).
 
     Returns (X, info): the residual history in the original problem's
     units, ADI iteration counts, the θ log, line-search λs, the shift
     rebuild count, ``newton_steps`` and ``converged``.
     """
     global shift_rebuild_seconds
-    if inner_gmres is not None:
-        raise NotImplementedError(
-            "Newton with inner FGMRES (inner_gmres=) belongs to the GMRES "
-            "slice and is not ported yet")
-    if inner_solve_dtype is not None:
-        raise NotImplementedError(
-            "mixed-precision inner solves (inner_solve_dtype=) are not ported yet")
-
     E, A, Q = prob.E, prob.A, prob.Q
     n = Q.n
     dtype, dev = prob.G.L.dtype, prob.G.L.device
@@ -891,6 +976,7 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
         sigma = 1.0  # already balanced; skip the scaling round trip
     sqrt_s = _in_dtype(math.sqrt(sigma), dtype)
     B = prob.G.L[:, :prob.G.k] / sqrt_s
+    Ct = sqrt_s * Q.L[:, :Q.k]
     Qs = LowRank(L=sqrt_s * Q.L, D=Q.D, k=Q.k)
     Gs = LowRank(L=prob.G.L / sqrt_s, D=prob.G.D, k=prob.G.k)
 
@@ -907,6 +993,22 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
     # No 1-D complex route: closed-loop conjugate pairs take the all-real
     # stacked double step on banded cores and are made real elsewhere.
     pair_shifts = isinstance(base_A, DiaOp)
+    nonsym = (getattr(base_A, "symmetric", None) is False
+              or getattr(E, "symmetric", None) is False)
+
+    def _krylov_for(shift_buf):
+        """``krylov_cfg``; without one and with ``inner_solve_dtype``, the
+        default banded Krylov configuration for the buffer (BiCGStab where
+        it has a conjugate pair or the pencil is nonsymmetric, as
+        `build_dia_shift_ops` chooses) with that ``solve_dtype``."""
+        if krylov_cfg is not None or inner_solve_dtype is None:
+            return krylov_cfg
+        buf = np.asarray(shift_buf)
+        has_pairs = buf.ndim == 2 and bool(np.any(buf[:, 1] != 0))
+        return dataclasses.replace(
+            default_dia_krylov(E.dtype, has_pairs or nonsym or np.iscomplexobj(buf)),
+            solve_dtype=inner_solve_dtype)
+
     if per_step:
         strat = shifts
         E_sp = E.to_scipy()
@@ -920,7 +1022,7 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
     else:
         shifts = encode_shifts_for_operator(shifts, A)
         check_shift_pairing(shifts)
-        lus = build_step_shift_solvers(E, A, shifts, krylov_cfg,
+        lus = build_step_shift_solvers(E, A, shifts, _krylov_for(shifts),
                                        block_cache=block_cache)
 
     def gare_res(X, theta):
@@ -1120,13 +1222,19 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
                                        real_only=not pair_shifts,
                                        pair_encode=pair_shifts)
                 lus = None  # release the old shifted cores before the build
-                lus = build_step_shift_solvers(E, A, shifts, krylov_cfg,
+                lus = build_step_shift_solvers(E, A, shifts, _krylov_for(shifts),
                                                block_cache=block_cache)
                 K_at_shifts = K
                 shift_rebuilds += 1
 
         X_prev, res_norm_prev = X, res_norm
         just_staged = False
+        if inner_gmres is not None:
+            X = _newton_step_fgmres(E, A, Bt, Ct, X, K, shifts, lus, inner_gmres,
+                                    inner_abstol, capacity, observer)
+            adi_iters.append(-1)  # FGMRES: its counts go to the observer
+            newton_steps += 1
+            continue
         X, iters, _ = _newton_step_compiled(E, A, Bt, X, K, res, shifts,
                                             inner_abstol, cfg, lus)
         adi_iters.append(int(iters))

@@ -2,7 +2,8 @@
 driven from the host (port of the JAX package's ``models/newton.py``).
 
 Each Newton step solves the closed-loop GALE with ``F = A − BK`` by the
-warm-started host ADI (`models.adi`); the inner tolerance follows the
+warm-started host ADI (`models.adi`), or by FGMRES (`models.gmres`) when
+the inner solver is a `GMRES` config; the inner tolerance follows the
 forcing term, with an optional hybrid switch back to the classical
 tolerance, and an Armijo line search guards against too little decrease of
 the residual.  ``G`` and ``Q`` must carry identity inner factors
@@ -24,6 +25,7 @@ from ..ops.shifted import ShiftedSolveCache
 from ..utils.callbacks import notify
 from ..utils.timers import timeit
 from .adi import solve_gale_adi
+from .gmres import solve_gale_gmres
 from .problems import ADI, GALEProblem, GAREProblem, GMRES, Newton
 from .residuals import residual_gare_lowrank
 
@@ -35,9 +37,6 @@ def _check_identity_inner(M: LowRank, name: str) -> None:
 
 
 def solve_gare_newton(prob: GAREProblem, alg: Newton, *, observer=None) -> LowRank:
-    if isinstance(alg.inner_alg, GMRES):
-        raise NotImplementedError("Newton with a GMRES inner solver is not "
-                                  "ported yet (ROADMAP Queue 1 item 6)")
     _check_identity_inner(prob.G, "G")
     _check_identity_inner(prob.Q, "Q")
     notify(observer, "gare_start", prob, alg)
@@ -59,7 +58,7 @@ def solve_gare_newton(prob: GAREProblem, alg: Newton, *, observer=None) -> LowRa
 
     inner_alg = alg.inner_alg
     inner_reltol = (inner_alg.reltol
-                    if isinstance(inner_alg, ADI) and inner_alg.reltol is not None
+                    if isinstance(inner_alg, (ADI, GMRES)) and inner_alg.reltol is not None
                     else reltol / 10.0)
 
     # The closed-loop coefficient is A − BK with a constant A: shifted-core
@@ -138,9 +137,14 @@ def solve_gare_newton(prob: GAREProblem, alg: Newton, *, observer=None) -> LowRa
 
         X_prev = X
         with timeit("newton.gale_solve"):
-            X = lr_slice_active(solve_gale_adi(
-                lyap, inner_alg, abstol=inner_abstol, initial_guess=X_prev,
-                observer=observer, shift_cache=shift_cache))
+            if isinstance(inner_alg, GMRES):
+                X = lr_slice_active(solve_gale_gmres(
+                    lyap, inner_alg, abstol=inner_abstol, initial_guess=X_prev,
+                    observer=observer))
+            else:
+                X = lr_slice_active(solve_gale_adi(
+                    lyap, inner_alg, abstol=inner_abstol, initial_guess=X_prev,
+                    observer=observer, shift_cache=shift_cache))
 
     notify(observer, "gare_done", i, X, res, res_norm)
     return X

@@ -176,8 +176,10 @@ class BartelsStewart:
 
 @dataclasses.dataclass(frozen=True)
 class GMRES:
-    """Matrix-valued (F)GMRES on the Lyapunov operator.  Not ported yet
-    (ROADMAP Queue 1 item 6): `solve` raises for it."""
+    """Matrix-valued (F)GMRES on the Lyapunov operator
+    (`models.gmres.solve_gale_gmres`): ``maxiters`` Arnoldi steps a cycle,
+    ``maxrestarts`` restarts; ``preconditioner`` an `ADI` config (or a
+    prepared callable), applied to each Krylov vector."""
 
     maxiters: int = 3
     maxrestarts: int = 0

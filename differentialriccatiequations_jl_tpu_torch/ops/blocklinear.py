@@ -3,9 +3,10 @@
 Port of the JAX package's ``ops/blocklinear.py``: the algorithm configs
 (`Backslash`, `ShermanMorrisonWoodbury`, `Krylov`), `prepare` (a factored
 solver for an operator under a config) and the prepared solvers —
-preconditioned CG and BiCGStab over sparse operators (diagonal or block
-Jacobi), dense LU (`torch.linalg.lu_factor`, cuSOLVER on the card), and
-the Sherman–Morrison–Woodbury wrappers (real and stacked-real pair forms).
+preconditioned CG, BiCGStab and restarted GMRES over sparse operators
+(diagonal or block Jacobi), the mixed-precision `RefinedKrylovSolver`,
+dense LU (`torch.linalg.lu_factor`, cuSOLVER on the card), and the
+Sherman–Morrison–Woodbury wrappers (real and stacked-real pair forms).
 
 The Krylov iterations reproduce ``jax.scipy.sparse.linalg`` exactly (so
 iteration counts and results agree with the reference):
@@ -17,10 +18,17 @@ iteration counts and results agree with the reference):
 * the start ``x₀ = 0`` still costs one product ``A(x₀)``;
 * complex iterates are tested on the real part of ``⟨r, r⟩`` (the
   ``_vdot_real_tree`` of ``jax.scipy``), as CG's ``⟨p, Ap⟩`` and ``⟨r, z⟩``
-  are.
+  are;
+* GMRES is ``jax.scipy``'s ``solve_method="batched"``: left
+  preconditioning, ``maxiter`` restart cycles of ``restart`` Arnoldi steps
+  each (one classical Gram–Schmidt pass, as its
+  ``_iterative_classical_gram_schmidt`` with ``max_iterations=2`` runs),
+  a cycle cut short only by a breakdown ``‖v‖ ≤ eps·‖v₀‖``, and the small
+  least-squares problem solved by its normal equations.
 
 Each iteration's convergence test reads one boolean back to the host
-(one sync per iteration); `krylov_iterations` counts them and
+(one sync per iteration; for GMRES each restart test and each Arnoldi
+step's breakdown test); `krylov_iterations` counts them and
 `krylov_solves` the solves.
 """
 
@@ -71,18 +79,19 @@ class ShermanMorrisonWoodbury:
 class Krylov:
     """Matrix-free iterative solve (for sparse operators).
 
-    method: "bicgstab" (general) or "cg" (symmetric definite); "gmres" is
-    not ported (ROADMAP Queue 1 item 6).
+    method: "bicgstab" (general), "cg" (symmetric definite) or "gmres"
+    (restarted, ``restart`` Arnoldi steps a cycle, ``maxiter`` cycles).
     preconditioner: "jacobi" (diagonal) or "block_jacobi" (explicit
     inverses of the 128×128 diagonal blocks, one batched product per
     application).  The compiled paths build their block-Jacobi solvers
     themselves, whatever this field says.
     negate: solve ``(−A)X = −B`` — lets CG run on symmetric *negative*
     definite shifted coefficients ``Aᵀ + μEᵀ`` (A stable, μ < 0).
-    solve_dtype, refine_iters: the mixed-precision core with iterative
-    refinement; not ported (ROADMAP Queue 1 item 4): a ``solve_dtype``
-    other than the operator's dtype raises, one equal to it runs plain
-    Krylov.
+    solve_dtype, refine_iters: the mixed-precision core: a ``solve_dtype``
+    other than the operator's (e.g. "float32" under an f64 operator; made
+    complex for complex operators) runs the Krylov core in that dtype and
+    recovers full-dtype accuracy with ``refine_iters`` sweeps of iterative
+    refinement (`RefinedKrylovSolver`); one equal to it runs plain Krylov.
     """
 
     method: str = "bicgstab"
@@ -244,6 +253,73 @@ def _bicgstab(A, b, *, maxiter, tol, atol, M):
     return x
 
 
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(_vdot_real(x, x))
+
+
+def _safe_normalize(x: torch.Tensor, thresh=None):
+    """``(x/‖x‖, ‖x‖)``, or ``(0, 0)`` where ``‖x‖ ≤ thresh`` (default the
+    dtype's eps), as ``jax.scipy``'s ``_safe_normalize``."""
+    norm = _norm(x)
+    if thresh is None:
+        thresh = torch.finfo(norm.dtype).eps
+    use = norm > thresh
+    unit = torch.where(use, x / norm.to(x.dtype), torch.zeros_like(x))
+    return unit, torch.where(use, norm, torch.zeros_like(norm))
+
+
+def _gmres_cycle(A, M, b, x, unit_residual, residual_norm, restart):
+    """One restart cycle of ``jax.scipy``'s batched GMRES: up to
+    ``restart`` Arnoldi steps on ``M(A(·))`` (one host read each, for the
+    breakdown test), then ``y`` from the normal equations of the
+    Hessenberg least-squares problem."""
+    global krylov_iterations
+    dt = b.dtype
+    eps = torch.finfo(residual_norm.dtype).eps
+    V = b.new_zeros((restart + 1,) + tuple(b.shape))
+    V[0] = unit_residual
+    Vf = V.view(restart + 1, -1)
+    # H starts as an identity block: rows not reached after a breakdown
+    # stay identity rows.
+    H = torch.eye(restart, restart + 1, dtype=dt, device=b.device)
+    for k in range(restart):
+        v = M(A(V[k]))
+        _, v_norm_0 = _safe_normalize(v)
+        h = Vf.conj() @ v.reshape(-1)
+        v = v - (h @ Vf).view(v.shape)
+        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
+        V[k + 1] = unit_v
+        h[k + 1] = v_norm_1.to(dt)
+        H[k] = h
+        krylov_iterations += 1
+        if bool(v_norm_1 == 0):  # host sync: breakdown
+            break
+    beta = b.new_zeros((restart + 1,))
+    beta[0] = residual_norm.to(dt)
+    a = H.T
+    chol, _ = torch.linalg.cholesky_ex(a.mH @ a)
+    y = torch.cholesky_solve((a.mH @ beta)[:, None], chol)[:, 0]
+    x = x + (y @ Vf[:-1]).view(b.shape)
+    return (x,) + _safe_normalize(M(b - A(x)))
+
+
+def _gmres(A, b, *, maxiter, tol, atol, restart, M):
+    """Left-preconditioned restarted GMRES as ``jax.scipy.sparse.linalg.gmres``
+    with ``solve_method="batched"``: the whole block ``b`` is one vector;
+    ``maxiter`` counts restart cycles; the stopping rule is
+    ``‖M(b − Ax)‖ ≤ max(tol·‖b‖, atol)``."""
+    restart = min(restart, b.numel())
+    bound = torch.clamp(tol * _norm(b), min=atol)
+    x = torch.zeros_like(b)
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    k = 0
+    while k < maxiter and _continue(residual_norm > bound):
+        x, unit_residual, residual_norm = _gmres_cycle(
+            A, M, b, x, unit_residual, residual_norm, restart)
+        k += 1
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class KrylovSolver:
     op: object
@@ -296,14 +372,15 @@ class KrylovSolver:
             B = -B
         else:
             mv, precond = base_mv, base_prec
+        kw = dict(maxiter=cfg.maxiter, tol=cfg.tol, atol=cfg.atol, M=precond)
         if cfg.method == "cg":
-            iterate = _cg
+            x = _cg(mv, B, **kw)
         elif cfg.method == "bicgstab":
-            iterate = _bicgstab
+            x = _bicgstab(mv, B, **kw)
+        elif cfg.method == "gmres":
+            x = _gmres(mv, B, restart=cfg.restart, **kw)
         else:
-            raise _unported_method(cfg.method)
-        x = iterate(mv, B, maxiter=cfg.maxiter, tol=cfg.tol, atol=cfg.atol,
-                    M=precond)
+            raise _unknown_method(cfg.method)
         if lane_major:
             x = x[:, :n_rows].T
         return x * scale
@@ -337,6 +414,28 @@ class PairSMWSolver:
         ], dim=1)
 
 
+@dataclasses.dataclass(frozen=True)
+class RefinedKrylovSolver:
+    """Mixed-precision iterative refinement around a low-dtype Krylov core:
+    ``x₀ = solve_lo(B)``, then ``iters`` sweeps of ``x += solve_lo(B − A·x)``
+    with the residual taken against the full-precision operator (its
+    products in the full dtype: K1 or K2 in f64 for an f64 operator)."""
+
+    op_hi: object  # full-precision operator
+    inner: KrylovSolver  # prepared on the low-dtype operator
+    iters: int
+
+    def solve(self, B: torch.Tensor) -> torch.Tensor:
+        lo = self.inner.op.dtype
+        hi = torch.promote_types(self.op_hi.dtype, B.dtype)
+        B = B.to(hi)
+        x = self.inner.solve(B.to(lo)).to(hi)
+        for _ in range(self.iters):
+            r = B - self.op_hi.mm(x)
+            x = x + self.inner.solve(r.to(lo)).to(hi)
+        return x
+
+
 def block_jacobi_inverses(blocks: torch.Tensor) -> torch.Tensor:
     """Explicit inverses of the ``(..., nb, bs, bs)`` diagonal blocks,
     applied later as one batched matmul per Krylov iteration.  Real blocks
@@ -347,10 +446,7 @@ def block_jacobi_inverses(blocks: torch.Tensor) -> torch.Tensor:
     return inv
 
 
-def _unported_method(method: str) -> Exception:
-    if method == "gmres":
-        return NotImplementedError(
-            "Krylov(method='gmres') is not ported yet (ROADMAP Queue 1 item 6)")
+def _unknown_method(method: str) -> Exception:
     return ValueError(f"unknown Krylov method {method!r}")
 
 
@@ -363,7 +459,7 @@ def _extract_diag(op) -> torch.Tensor:
     return op.diag()  # sparse operators implement .diag()
 
 
-def _solve_dtype(name, op_dtype: torch.dtype) -> torch.dtype:
+def solve_dtype(name, op_dtype: torch.dtype) -> torch.dtype:
     """The torch dtype of a ``Krylov.solve_dtype`` (a numpy dtype name or
     object), made complex for complex operators, as the JAX package does."""
     lo = np.dtype(name)
@@ -392,13 +488,17 @@ def prepare(A, alg) -> object:
         return SMWSolver(base=base, AinvU=AinvU, V=A.V,
                          schur=prepare(DenseOp(S), alg.inner))
     if isinstance(alg, Krylov):
-        if alg.solve_dtype is not None and _solve_dtype(alg.solve_dtype, A.dtype) != A.dtype:
-            raise NotImplementedError(
-                "Krylov(solve_dtype=...) other than the operator's dtype, the "
-                "mixed-precision core with iterative refinement, is not "
-                "ported yet (ROADMAP Queue 1 item 4)")
-        if alg.method not in ("cg", "bicgstab"):
-            raise _unported_method(alg.method)
+        if alg.solve_dtype is not None:
+            lo = solve_dtype(alg.solve_dtype, A.dtype)
+            if lo != A.dtype:
+                from .operators import op_astype
+
+                inner = prepare(op_astype(A, lo),
+                                dataclasses.replace(alg, solve_dtype=None))
+                return RefinedKrylovSolver(op_hi=A, inner=inner,
+                                           iters=alg.refine_iters)
+        if alg.method not in ("cg", "bicgstab", "gmres"):
+            raise _unknown_method(alg.method)
         if alg.preconditioner == "block_jacobi" and hasattr(A, "diag_blocks"):
             prec = block_jacobi_inverses(A.diag_blocks())
         else:

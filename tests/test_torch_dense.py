@@ -289,7 +289,8 @@ def test_adi_compiled_drops_columns_silently(monkeypatch):
 def test_krylov_solve_dtype_equal_to_operator_runs_plain_krylov():
     """A `Krylov(solve_dtype="float64")` carried across from the JAX
     package solves f64 operators as plain Krylov, with the iteration count
-    of ``solve_dtype=None``; another dtype still raises."""
+    of ``solve_dtype=None``; another dtype runs the refined mixed-precision
+    solver."""
     from differentialriccatiequations_jl_tpu.ops.blocklinear import Krylov as JKrylov
 
     E, A, _, _ = ttm.rail_surrogate(128)
@@ -306,5 +307,9 @@ def test_krylov_solve_dtype_equal_to_operator_runs_plain_krylov():
     assert outs[0][1] == outs[1][1] > 0
     assert torch.equal(outs[0][0], outs[1][0])
     assert float(torch.linalg.norm(Fo.mm(outs[0][0]) - B) / torch.linalg.norm(B)) < 1e-10
-    with pytest.raises(NotImplementedError):
-        prepare(Fo, Krylov(solve_dtype="float32"))
+    refined = prepare(Fo, Krylov(method="bicgstab", tol=1e-12, solve_dtype="float32"))
+    assert isinstance(refined, blocklinear.RefinedKrylovSolver)
+    assert refined.inner.op.dtype == torch.float32
+    x = refined.solve(B)
+    assert x.dtype == torch.float64
+    assert float(torch.linalg.norm(Fo.mm(x) - B) / torch.linalg.norm(B)) < 1e-10

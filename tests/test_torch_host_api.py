@@ -1,10 +1,10 @@
 """The host API's routing and its block linear layer: `prepare` /
 `solve_blocklinear` (dense LU, SMW, Krylov with the diagonal or the block
 Jacobi preconditioner, real and complex shifted operators) against the JAX
-package's on the same numpy inputs, f64 on the CPU; the branches of
-`solve` that are not ported raise `NotImplementedError` naming their
-ROADMAP item; the compiled paths' Krylov configuration is unchanged by the
-new `Krylov` fields.
+package's on the same numpy inputs, f64 on the CPU; the branch of `solve`
+that is not ported (Parareal) raises `NotImplementedError` naming its
+ROADMAP item, the GMRES and mixed-precision branches run; the compiled
+paths' Krylov configuration is unchanged by the new `Krylov` fields.
 
 Tolerances: solutions within 1e-10 relative (the Krylov tolerance 1e-12
 amplified by the operators' conditioning; dense LU to 1e-13).
@@ -146,8 +146,11 @@ def test_unported_branches_raise():
     _, (tE, tA), B = _pencils()
     C = torch.as_tensor(np.ones((2, N)))
     gale = T.GALEProblem(tE, tA, T.lowrank(C.T.contiguous()))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        T.solve(gale, T.GMRES())
+    # GMRES and the mixed-precision Krylov core are ported (ROADMAP Queue 1
+    # items 6 and 4).
+    X = T.solve(gale, T.GMRES(maxiters=2, warn_convergence=False))
+    assert isinstance(X, T.LowRank) and X.k > 0
+    assert float(T.lr_norm(T.residual(gale, X))) < float(T.lr_norm(gale.C))
     X0 = T.lowrank(C.T.contiguous())
     lr = T.GDREProblem(tE, tA, B, C, X0, (1.0, 0.0))
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
@@ -159,10 +162,12 @@ def test_unported_branches_raise():
         with pytest.raises(NotImplementedError, match="BartelsStewart inner solves"):
             T.solve(dense, alg, dt=-0.5)
     assert T.residual(gale, torch.zeros((N, N), dtype=torch.float64)).shape == (N, N)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tbl.prepare(tA, T.Krylov(method="gmres"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tbl.prepare(tA, T.Krylov(solve_dtype="float32"))
+    assert isinstance(tbl.prepare(tA, T.Krylov(method="gmres")), tbl.KrylovSolver)
+    refined = tbl.prepare(tA, T.Krylov(solve_dtype="float32"))
+    assert isinstance(refined, tbl.RefinedKrylovSolver)
+    assert refined.inner.op.dtype == torch.float32 and refined.iters == 2
+    with pytest.raises(ValueError, match="unknown Krylov method"):
+        tbl.prepare(tA, T.Krylov(method="minres"))
     with pytest.raises(TypeError, match="no GALE solver"):
         T.solve(gale, T.Newton())
     with pytest.raises(TypeError, match="no GDRE integrator"):

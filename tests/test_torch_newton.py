@@ -259,10 +259,28 @@ def test_newton_pair_buffer_matches_real_substitute():
 
 
 def test_newton_unported_options_raise():
+    """The two options that used to raise run now: inner FGMRES under
+    the capped compiled ADI (``adi_iters`` -1 a step) and the f32 inner
+    core (the ADI's counts); ``tests/test_torch_gmres.py`` and
+    ``tests/test_torch_mixed.py`` hold them against the JAX package."""
+    from differentialriccatiequations_jl_tpu_torch import GMRES
+
     _, tp, _, _ = _problems(1.0)
-    for kw in ({"inner_gmres": object()}, {"inner_solve_dtype": "float32"}):
-        with pytest.raises(NotImplementedError):
-            tcomp.solve_gare_newton_compiled(tp, shifts=np.asarray([-1.0]), cfg=CFG, **kw)
+    gmres = GMRES(maxiters=2, warn_convergence=False,
+                  preconditioner=tcomp.CappedADI(maxiters=4, r_in=16, capacity=64))
+    for kw in ({"inner_gmres": gmres}, {"inner_solve_dtype": "float32"}):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            X, info = tcomp.solve_gare_newton_compiled(
+                tp, shifts=np.asarray([-1.0, -2.0]), cfg=CFG, capacity=CAPACITY,
+                maxiters=2, **kw)
+        assert info["newton_steps"] == 2 and np.isfinite(info["residuals"]).all()
+        assert info["residuals"][-1] < info["residuals"][0]
+        assert torch.isfinite(X.L).all() and torch.isfinite(X.D).all()
+        if "inner_gmres" in kw:
+            assert info["adi_iters"] == [-1, -1]
+        else:
+            assert min(info["adi_iters"]) > 0
 
 
 def test_newton_maxiters_warns_and_reports():

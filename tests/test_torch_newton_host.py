@@ -11,6 +11,7 @@ where the ADI's relative residual was above 1e-6 when they were drawn: at
 """
 
 import importlib
+import warnings
 
 import numpy as np
 import pytest
@@ -103,8 +104,13 @@ def test_newton_rejects_nonidentity_inner_and_gmres():
     Gbad = T.lowrank(G.L, 2.0 * torch.eye(G.r, dtype=G.L.dtype))
     with pytest.raises(NotImplementedError, match="identity inner factor"):
         T.solve(T.GAREProblem(tprob.E, tprob.A, Gbad, tprob.Q), T.Newton())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        T.solve(tprob, T.Newton(T.GMRES()))
+    # A GMRES inner solver is ported (ROADMAP Queue 1 item 6);
+    # tests/test_torch_gmres.py holds it against the JAX package.
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        X = T.solve(tprob, T.Newton(T.GMRES(maxiters=3, warn_convergence=False), maxiters=2))
+    assert torch.isfinite(X.L).all()
+    assert float(T.lr_norm(T.residual(tprob, X))) < float(T.lr_norm(tprob.Q))
 
 
 def test_newton_superlinear_forcing_and_observer():

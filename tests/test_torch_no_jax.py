@@ -48,7 +48,8 @@ assert k1.launches == 0, k1.launches
 assert not torch.backends.cuda.matmul.allow_tf32
 from differentialriccatiequations_jl_tpu_torch import (
     ADI, GALEProblem, GAREProblem, GDREProblem, Newton, Ros1, Ros2, Shifts, init,
-    lowrank, residual, solve)
+    lowrank, lr_norm, residual, solve)
+from differentialriccatiequations_jl_tpu_torch.models.compiled import CompiledConfig
 C1 = torch.as_tensor(np.ones((100, 1)))
 gale = GALEProblem(E_op, _, lowrank(C1))
 X = solve(gale, ADI(shifts=Shifts.Cyclic(Shifts.Heuristic(4, 6, 6))))
@@ -66,6 +67,29 @@ for alg in (BartelsStewart(), BartelsStewart(host=True), Kronecker()):
     assert float(torch.linalg.norm(residual(dgale, solve(dgale, alg)))) < 1e-10
 solve(GDREProblem(Ed, Ad, Bd, Cd, Cd.T @ Cd, (1.0, 0.0)), Ros4(), dt=-0.5)
 build_step_shift_solvers(dgale.E, dgale.A, np.asarray([-1.0, -2.0 + 1.0j, -2.0 - 1.0j]))
+import dataclasses
+from differentialriccatiequations_jl_tpu_torch import GMRES, Krylov, solve_blocklinear
+from differentialriccatiequations_jl_tpu_torch.models.compiled import (
+    CappedADI, build_dia_shift_ops, default_dia_krylov, solve_gare_newton_compiled)
+X = solve(gale, GMRES(maxiters=2, maxrestarts=1, warn_convergence=False,
+                      preconditioner=ADI(maxiters=2, shifts=Shifts.Cyclic((-1.0,)))))
+assert float(residual(gale, X).D.abs().max()) < float(lr_norm(gale.C) ** 2)
+F = E_op.adjoint()
+for alg in (Krylov(method="gmres", restart=5, maxiter=2),
+            Krylov(solve_dtype="float32", refine_iters=1)):
+    assert solve_blocklinear(F, X.L[:, :2], alg).shape == (100, 2)
+ops = build_dia_shift_ops(E_op, _, np.asarray([-1.0]), dataclasses.replace(
+    default_dia_krylov(torch.float64, False), solve_dtype="float32"))
+assert ops.prec_inv.dtype == torch.float32
+are = GAREProblem(E_op, _, lowrank(C1), lowrank(C1))
+solve_gare_newton_compiled(are, shifts=np.asarray([-1.0]), cfg=CompiledConfig(4, 2, 8),
+                           capacity=16, maxiters=1, inner_solve_dtype="float32")
+solve_gare_newton_compiled(are, shifts=np.asarray([-1.0]), cfg=CompiledConfig(4, 2, 8),
+                           capacity=16, maxiters=1, inner_gmres=GMRES(
+                               maxiters=2, warn_convergence=False,
+                               preconditioner=CappedADI(2, 8, 16)))
+solve(are, Newton(GMRES(maxiters=2, warn_convergence=False), maxiters=1))
+assert k1.launches == 0, k1.launches
 print("OK", len(names))
 """
 
@@ -75,7 +99,7 @@ def test_port_imports_no_jax_and_cpu_never_launches():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 29  # every module was imported
+    assert int(proc.stdout.split()[1]) >= 30  # every module was imported
 
 
 def test_no_jax_import_statements():

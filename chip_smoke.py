@@ -64,11 +64,20 @@ both compilers started together, and then:
     full size: the compiled GALE with the f32 core and with the f64 core,
     the compiled Newton with f32 inner solves (to its end, at most
     `MIXED_NEWTON_MAXITERS` steps) and one refined solve on the block-ELL
-    pencil against the f64 solve, counting K1 and K2 launches by dtype.
+    pencil against the f64 solve, counting K1 and K2 launches by dtype;
+16. runs parareal (`solve_gdre_parareal`, `bench.py`'s parareal
+    configuration) on the card and on the CPU at n=1357, each held to its
+    serial Ros1 sweep (max_iters = slabs: classical exactness), card vs CPU,
+    and once more over a world-size-1 NCCL mesh (`parallel.make_mesh`);
+    then at full size on the DIA pencil (8 slabs of 4 steps, 2 parareal
+    iterations) beside the serial 32-step sweep, counting K1 launches; then
+    the row-sharded DIA and block-ELL products at n=79841 in 4 emulated
+    shards (each shard's local product on the halo-extended operand through
+    K1 or K2) against the unsharded products and the plain versions.
 
 Phases 10, 11, 14 and 15 hold each solver's residual against an
 independent evaluation (`residual`).  Every full-size path (phases 3, 5, 7,
-10, 11, 13, 14 and 15) records the products it hands K1 and K2
+10, 11, 13, 14, 15 and 16) records the products it hands K1 and K2
 (`ProductLog`: product, dtype, width, operand strides); after the run each
 kernel is held against its plain version at every one of them.
 
@@ -77,7 +86,7 @@ kernel is held against its plain version at every one of them.
 builds the kernels and runs phase 7 alone (at another capacity of ``X``);
 ``--host-only`` builds them and runs phases 8 to 11, ``--dense-only``
 phases 12 and 13, ``--gmres-only`` phase 14 and ``--mixed-only`` phase 15
-(both flags: both phases).
+(both flags: both phases), ``--parareal-only`` phase 16.
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -119,7 +128,10 @@ from differentialriccatiequations_jl_tpu_torch.models import lyapunov_dense
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
     _ROS2_GAMMA, CappedADI, CompiledConfig, PerStepHeuristic, _residual_norm,
     build_dia_shift_ops, default_dia_krylov, pair_encode_shifts, ros1_initial_residual,
-    ros1_step_compiled, solve_gare_newton_compiled, solve_gdre_ros2_compiled)
+    ros1_step_compiled, solve_gare_newton_compiled, solve_gdre_ros1_compiled,
+    solve_gdre_ros2_compiled)
+from differentialriccatiequations_jl_tpu_torch.models.parareal import (
+    Parareal, solve_gdre_parareal)
 from differentialriccatiequations_jl_tpu_torch.models.problems import GAREProblem, GDREProblem
 from differentialriccatiequations_jl_tpu_torch.models.residuals import (
     residual_gale_lowrank, residual_gare_lowrank)
@@ -130,7 +142,10 @@ from differentialriccatiequations_jl_tpu_torch.ops import blocklinear
 from differentialriccatiequations_jl_tpu_torch.ops.shifted import shifted_operator
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil, shifted_dia
 from differentialriccatiequations_jl_tpu_torch.ops.operators import DenseOp, lin_comb, op_astype
-from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil, shifted_bell
+from differentialriccatiequations_jl_tpu_torch.ops.sparse import (
+    bell_from_scipy, bell_pencil, shifted_bell)
+from differentialriccatiequations_jl_tpu_torch.parallel.dryrun import free_port
+from differentialriccatiequations_jl_tpu_torch.parallel.mesh import make_mesh, shard_operator
 from differentialriccatiequations_jl_tpu_torch.utils import timers
 from differentialriccatiequations_jl_tpu_torch.utils.callbacks import Observer
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import (
@@ -318,6 +333,20 @@ MIXED_BELL_KRYLOV = Krylov(method="cg", negate=True, preconditioner="block_jacob
                            solve_dtype="float32", refine_iters=3)
 MIXED_REL_TOL = 1e-9
 MIXED_RES_TOL = 1e-4
+# Parareal (phase 16): `bench.py`'s parareal substage (n=1357, τ = 5, 8
+# slabs of 4 fine steps, 16 Penzl shifts each for the fine and the coarse
+# cores, SWEEP_CFG, capacity 96, abstol n·eps·‖C‖).  16a cuts it to 4 slabs
+# of 2 steps at capacity SMALL_CAPACITY with max_iters = slabs: then every
+# boundary is the serial fine sweep's (classical exactness, within
+# PARAREAL_EXACT_TOL as tests/test_parareal.py holds it), and the run over
+# a world-size-1 NCCL mesh takes the same steps in the same order
+# (PARAREAL_MESH_TOL: the all-gather copies).  16b runs it at n=79841 with
+# the bench's 8 slabs of 4 steps and 2 parareal iterations.  16c splits the
+# n=79841 DIA and block-ELL operators into SHARDS row shards.
+PARAREAL_TAU = 5.0
+PARAREAL_EXACT_TOL = 1e-8
+PARAREAL_MESH_TOL = 1e-12
+SHARDS = 4
 
 
 class PhaseError(RuntimeError):
@@ -2065,6 +2094,230 @@ def phase_mixed(E, A, B, C, dev, k1_launches, k2_launches):
     return products.check(f"[mixed n={N_FULL}]")
 
 
+# --- phase 16: parareal and the row-sharded products -------------------------------
+
+
+def parareal_problem(E, A, B, C, dev, slabs, n_fine, capacity):
+    """`bench.py`'s parareal configuration (its substage at n=1357: τ = 5,
+    16 Penzl shifts of ``A − E/(2τ)`` for the fine cores and 16 of
+    ``A − E/(2·n_fine·τ)`` for the coarse ones, X0 = lowrank(E⁻¹Cᵀ, 0.01·I),
+    `SWEEP_CFG`) at ``slabs × n_fine`` steps.  Returns (problem, fine
+    shifts, coarse shifts, shift seconds)."""
+    dt = torch.float64
+    t0 = time.perf_counter()
+    shifts = []
+    for tau in (PARAREAL_TAU, n_fine * PARAREAL_TAU):
+        sv = heuristic_shifts_host(E, sp.csr_matrix(A - E / (2.0 * tau)), 16, 20, 20)
+        check(all(abs(v.imag) <= 1e-12 * abs(v) for v in sv), "Penzl shifts are not real")
+        shifts.append(np.asarray([v.real for v in sv]))
+    t_shifts = time.perf_counter() - t0
+    L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
+    X0 = lr_with_capacity(lowrank(torch.as_tensor(L0, dtype=dt, device=dev),
+                                  0.01 * torch.eye(C.shape[0], dtype=dt, device=dev)),
+                          capacity)
+    E_op, A_op = dia_pencil(E, A, dtype=dt, device=dev)
+    prob = GDREProblem(E_op, A_op, torch.as_tensor(B, dtype=dt, device=dev),
+                       torch.as_tensor(C, dtype=dt, device=dev), X0,
+                       (4500.0, 4500.0 - slabs * n_fine * PARAREAL_TAU))
+    return prob, shifts[0], shifts[1], t_shifts
+
+
+def run_parareal(prob, shifts, cshifts, capacity, alg, mesh=None):
+    """`solve_gdre_parareal` with a synchronized wall; (solution, wall)."""
+    sync = prob.B.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solve_gdre_parareal(prob, dt=-PARAREAL_TAU, shifts=shifts, coarse_shifts=cshifts,
+                              cfg=SWEEP_CFG, capacity=capacity, alg=alg, mesh=mesh)
+    if sync:
+        torch.cuda.synchronize()
+    return sol, time.perf_counter() - t0
+
+
+def run_serial(prob, shifts, capacity):
+    """The serial `solve_gdre_ros1_compiled` on the fine shifts; (solution,
+    wall)."""
+    sync = prob.B.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solve_gdre_ros1_compiled(prob, dt=-PARAREAL_TAU, shifts=shifts, cfg=SWEEP_CFG,
+                                   capacity=capacity)
+    if sync:
+        torch.cuda.synchronize()
+    return sol, time.perf_counter() - t0
+
+
+def lr_cpu(X: LowRank) -> LowRank:
+    return LowRank(L=X.L.cpu(), D=X.D.cpu(), k=X.k)
+
+
+def worst_K(sol, ref) -> float:
+    return max(rel_diff(a.cpu(), b.cpu()) for a, b in zip(sol.K[1:], ref.K[1:]))
+
+
+def parareal_counts(sol):
+    info = sol.parareal_info
+    return (info["iterations"], info["stopped_by"], sol.adi_iters, info["fine_iters_total"])
+
+
+def phase_parareal_small():
+    """Phase 16a: parareal at n=1357 (S = 4, n_fine = 2, max_iters = 4,
+    capacity `SMALL_CAPACITY`) on the card and on the CPU, each against its
+    serial sweep (classical exactness, `PARAREAL_EXACT_TOL`); card vs CPU in
+    every K and boundary (`STEP_REL_TOL`) with equal counts; then the same
+    solve over a world-size-1 NCCL group (`make_mesh(1)`) against the run
+    without a group (`PARAREAL_MESH_TOL`)."""
+    E, A, B, C = rail_surrogate(N_SMALL)
+    alg = Parareal(slabs=4, max_iters=4)
+    outs = {}
+    for dev in (CARD, "cpu"):
+        prob, shifts, cshifts, _ = parareal_problem(E, A, B, C, dev, 4, 2, SMALL_CAPACITY)
+        sol, wall = run_parareal(prob, shifts, cshifts, SMALL_CAPACITY, alg)
+        ser, swall = run_serial(prob, shifts, SMALL_CAPACITY)
+        dK = worst_K(sol, ser)
+        dX = lr_rel_diff(sol.X[-1], ser.X[-1])
+        log(f"[parareal n={N_SMALL}] {dev}: {wall:.3f} s (serial {swall:.3f} s), "
+            f"iterations {sol.parareal_info['iterations']} ({sol.parareal_info['stopped_by']}), "
+            f"deltas {['%.3e' % d for d in sol.parareal_info['deltas']]}, ADI iters "
+            f"{sol.adi_iters} (all sweeps {sol.parareal_info['fine_iters_total']}); "
+            f"vs serial: K {dK:.3e}, X(T) {dX:.3e}")
+        check(dK <= PARAREAL_EXACT_TOL and dX <= PARAREAL_EXACT_TOL,
+              f"parareal n={N_SMALL} {dev}: not the serial sweep (K {dK:.3e}, X {dX:.3e})")
+        outs[dev] = (sol, prob, shifts, cshifts)
+    (g, prob, shifts, cshifts), (c, _, _, _) = outs[CARD], outs["cpu"]
+    dK = worst_K(g, c)
+    dB = max(lr_rel_diff(lr_cpu(a), b) for a, b in zip(g.X, c.X))
+    log(f"[parareal n={N_SMALL}] card vs CPU: K {dK:.3e}, boundaries {dB:.3e}, counts "
+        f"{parareal_counts(g)} / {parareal_counts(c)}")
+    check(parareal_counts(g) == parareal_counts(c),
+          f"parareal n={N_SMALL}: counts differ (card {parareal_counts(g)}, "
+          f"CPU {parareal_counts(c)})")
+    check(dK <= STEP_REL_TOL and dB <= STEP_REL_TOL,
+          f"parareal n={N_SMALL}: card and CPU differ beyond {STEP_REL_TOL}")
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, axis="slab")
+        m, wall = run_parareal(prob, shifts, cshifts, SMALL_CAPACITY, alg, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    dK = worst_K(m, g)
+    dB = max(lr_rel_diff(a, b) for a, b in zip(m.X, g.X))
+    log(f"[parareal n={N_SMALL}] over a world-size-1 NCCL mesh: {wall:.3f} s, K {dK:.3e}, "
+        f"boundaries {dB:.3e} from the run without a group")
+    check(parareal_counts(m) == parareal_counts(g) and dK <= PARAREAL_MESH_TOL
+          and dB <= PARAREAL_MESH_TOL,
+          f"parareal n={N_SMALL}: the NCCL mesh run differs (K {dK:.3e}, X {dB:.3e})")
+
+
+def phase_parareal_full(E, A, B, C, dev):
+    """Phase 16b: parareal at n=79841 on the DIA pencil (S = 8, n_fine = 4,
+    32 steps, capacity `CAPACITY`, `Parareal(8, max_iters=2)`) through K1,
+    beside the serial 32-step sweep on the same fine shifts.  Returns the
+    K1 launches of the parareal run."""
+    tag = f"[parareal n={N_FULL}]"
+    prob, shifts, cshifts, t_shifts = parareal_problem(E, A, B, C, dev, 8, 4, CAPACITY)
+    log(f"{tag} Penzl shifts (fine and coarse) in {t_shifts:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the main path's run starts here
+    sol, wall = run_parareal(prob, shifts, cshifts, CAPACITY, Parareal(slabs=8, max_iters=2))
+    launches = k1.launches  # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ser, swall = run_serial(prob, shifts, CAPACITY)
+    info = sol.parareal_info
+    d = info["deltas"]
+    dK = rel_diff(sol.K[-1].cpu(), ser.K[-1].cpu())
+    finite = all(bool(torch.isfinite(K).all()) for K in sol.K) and all(
+        bool(torch.isfinite(X.L).all() and torch.isfinite(X.D).all()) for X in sol.X)
+    log(f"{tag} parareal wall {wall:.3f} s ({info['iterations']} iterations, "
+        f"{info['stopped_by']}), serial wall {swall:.3f} s; deltas "
+        f"{['%.6e' % v for v in d]}; ADI iterations: final sweep {sol.adi_iters}, all "
+        f"sweeps {info['fine_iters_total']} (serial {ser.adi_iters}); worst res "
+        f"{info['res_max_all_sweeps']:.3e}; ‖K_par(T) − K_ser(T)‖/‖K_ser(T)‖ {dK:.3e}; "
+        f"peak {peak:.2f} GiB; K1 launches {launches}")
+    check(finite, f"{tag}: non-finite output")
+    check(len(d) < 2 or d[1] < d[0], f"{tag}: deltas do not contract: {d}")
+    check(launches > 0, f"{tag}: K1 was not launched")
+    return launches
+
+
+def phase_sharded_products(E, A, dev):
+    """Phase 16c: the row-sharded DIA and block-ELL (bs = 128) products at
+    n=79841 on one card, emulated: `SHARDS` row shards
+    (`shard_operator(..., rank=r)`), each fed the halo-extended operand the
+    exchange would deliver, sliced from the whole X; each shard's local
+    product through K1 or K2, concatenated; ``mm`` and ``tmm`` at q = 48
+    against the unsharded product and the plain version (`REL_TOL`).
+    Returns ({path: K1 launches}, {path: K2 launches}, K1 and K2 max abs
+    errors)."""
+    tag = f"[sharded n={N_FULL}]"
+    gen = torch.Generator(device=CARD).manual_seed(16)
+    X = torch.randn((N_FULL, 48), generator=gen, dtype=torch.float64, device=dev)
+    _, A_dia = dia_pencil(E, A, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    A_bell = bell_from_scipy(A, bs=BS, dtype=torch.float64, device=dev)
+    shards = {"dia": [shard_operator(None, A_dia, rank=r, world=SHARDS) for r in range(SHARDS)],
+              "bell": [shard_operator(None, A_bell, rank=r, world=SHARDS)
+                       for r in range(SHARDS)]}
+    torch.cuda.synchronize()
+    log(f"{tag} {SHARDS} shards built in {time.perf_counter() - t0:.2f} s: DIA rows "
+        f"{[s.rows for s in shards['dia']]}, halo {shards['dia'][0].H}; block-ELL rows "
+        f"{[s.rows for s in shards['bell']]}, halo {shards['bell'][0].fwd.halo} block rows")
+
+    outs, paths = {}, {}
+    for fmt, kern in (("dia", k1), ("bell", k2)):
+        reset_launches()  # this path's run starts here
+        for t in (False, True):
+            if fmt == "dia":
+                parts = [s.local_mm(s.extend(X), t=t) for s in shards["dia"]]
+            else:
+                spmms = [s.bwd if t else s.fwd for s in shards["bell"]]
+                parts = [p.local_mm(p.extend(X)) for p in spmms]
+            outs[(fmt, t)] = torch.cat(parts)
+        torch.cuda.synchronize()
+        paths[fmt] = kern.launches  # ... and ends here
+    errs = {}
+    for (fmt, t), Y in outs.items():
+        op = A_dia if fmt == "dia" else A_bell
+        full = op.tmm(X) if t else op.mm(X)
+        if fmt == "dia":
+            offs = tuple(-o for o in op.offsets) if t else op.offsets
+            plain = k1.dia_mm_plain(op.data_t if t else op.data, offs, X)
+        else:
+            plain = k2.bell_mm_plain(op.cols_t if t else op.cols, op.data_t if t else op.data, X)
+        name = f"{tag} {fmt} {'tmm' if t else 'mm'}"
+        e1, r1 = check_close(f"{name} vs unsharded", Y, full, "float64")
+        e2, r2 = check_close(f"{name} vs plain", Y, plain, "float64")
+        errs[fmt] = max(errs.get(fmt, 0.0), e1, e2)
+        log(f"{name}: {SHARDS} shards = unsharded (rel {r1:.3e}) = plain (rel {r2:.3e})")
+    for fmt in ("dia", "bell"):
+        check(paths[fmt] == 2 * SHARDS, f"{tag} {fmt}: {paths[fmt]} launches, "
+                                        f"not {2 * SHARDS}")
+    log(f"{tag} launches: K1 {paths['dia']}, K2 {paths['bell']}")
+    return ({"sharded_dia": paths["dia"]}, {"sharded_bell": paths["bell"]},
+            errs["dia"], errs["bell"])
+
+
+def phase_parareal(E, A, B, C, dev, k1_launches, k2_launches):
+    """Phase 16: 16a, then 16b under a `ProductLog`, then 16c.  Adds the
+    launches per path to ``k1_launches`` and ``k2_launches``; returns the
+    kernels' max abs errors."""
+    phase_parareal_small()
+    launches, err1 = checked(f"[parareal n={N_FULL}]", "K1",
+                             lambda: phase_parareal_full(E, A, B, C, dev))
+    k1_launches["parareal"] = launches
+    l1, l2, e1, e2 = phase_sharded_products(E, A, dev)
+    k1_launches.update(l1)
+    k2_launches.update(l2)
+    return {"K1": max(err1, e1), "K2": e2}
+
+
 def checked(tag, kern, run):
     """``run()``, a full-size main path that returns its launches, under a
     `ProductLog`; then the kernels against their plain versions at every
@@ -2099,9 +2352,12 @@ def main() -> int:
                          "--mixed-only: phases 14 and 15)")
     ap.add_argument("--mixed-only", action="store_true",
                     help="build the kernels and run only the mixed-precision phase 15")
+    ap.add_argument("--parareal-only", action="store_true",
+                    help="build the kernels and run only the parareal and sharded-product "
+                         "phase 16")
     args = ap.parse_args()
     only = args.newton_only or args.host_only or args.dense_only or args.gmres_only \
-        or args.mixed_only
+        or args.mixed_only or args.parareal_only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2126,6 +2382,10 @@ def main() -> int:
             phase_complex()
             phase_host_full(E, A, B, C, dev)
             phase_host_bell(E, A, B, C, bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev))
+        elif args.parareal_only:
+            k1_launches, k2_launches = {}, {}
+            phase_parareal(E, A, B, C, dev, k1_launches, k2_launches)
+            log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
         elif args.gmres_only or args.mixed_only:
             k1_launches, k2_launches = {}, {}
             if args.gmres_only:
@@ -2172,6 +2432,9 @@ def main() -> int:
             errs = phase_mixed(E, A, B, C, dev, k1_launches, k2_launches)
             k1_err = max(k1_err, errs.get("K1", 0.0))
             k2_err = max(k2_err, errs.get("K2", 0.0))
+            errs = phase_parareal(E, A, B, C, dev, k1_launches, k2_launches)
+            k1_err = max(k1_err, errs["K1"])
+            k2_err = max(k2_err, errs["K2"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

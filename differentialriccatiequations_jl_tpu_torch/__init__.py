@@ -27,7 +27,7 @@ from .models import (
     ADI, BartelsStewart, DRESolution, GALEProblem, GAREProblem, GDREProblem, GMRES,
     Kronecker, Newton, Parareal, Ros1, Ros2, Ros3, Ros4, init, residual,
     sign_function_cache, solve, solve_gale_dense, solve_gale_gmres, solve_gale_host,
-    solve_gale_kronecker, solve_gdre_dense)
+    solve_gale_kronecker, solve_gdre_dense, solve_gdre_parareal)
 from .models import shifts as Shifts
 from .ops.blocklinear import (
     Backslash, BlockLinearProblem, Krylov, ShermanMorrisonWoodbury, solve_blocklinear)
@@ -46,4 +46,5 @@ __all__ = [
     "solve", "init", "residual", "Shifts",
     "solve_gale_dense", "solve_gale_host", "solve_gale_kronecker",
     "sign_function_cache", "solve_gdre_dense", "solve_gale_gmres",
+    "solve_gdre_parareal",
 ]

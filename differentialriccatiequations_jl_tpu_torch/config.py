@@ -44,3 +44,10 @@ def device() -> torch.device:
         raise RuntimeError("no CUDA device; pass device='cpu' explicitly to "
                            "run on the CPU")
     return torch.device("cuda")
+
+
+def resolve_device(dev=None) -> torch.device:
+    """``dev`` as a `torch.device`; ``None`` means `device()`, the card
+    (raising where there is none).  The constructors that build tensors
+    from host arrays take their default device from here."""
+    return device() if dev is None else torch.device(dev)

@@ -5,7 +5,9 @@ Lets a test feed both packages identical operators, factors, problems,
 precomputed shift tables (so, for example, block-inverse rounding is not
 compared twice) and algorithm configs.  Never imports JAX: callers pass
 ``np.asarray(...)`` of the JAX leaves and static fields as plain Python
-values; `config_from` reads a config's fields by name.
+values; `config_from` reads a config's fields by name.  Every
+``*_from_numpy`` builds its tensors on ``device``, by default the card
+(`config.resolve_device`: it raises where there is none).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .lowrank import LowRank
 from .models import problems, shifts
 from .models.compiled import CappedADI, DiaShiftOps, ShiftLUs, SparseShiftOps
@@ -25,7 +28,7 @@ from .ops.sparse import BellOp
 
 
 def _t(a, device):
-    return None if a is None else torch.tensor(np.asarray(a), device=device)
+    return None if a is None else torch.tensor(np.asarray(a), device=resolve_device(device))
 
 
 def dia_op_from_numpy(data, data_t, offsets, n, nnz, symmetric=None,
@@ -96,7 +99,7 @@ def config_from(cfg):
     """The port's config for one of the JAX package's (or ``None``), read
     field by field; dispatches on the class name: `ADI`, `GMRES` (its
     ``preconditioner`` converted in turn), `CappedADI`, `Newton`, `Ros1`,
-    `Ros2`, the four shift strategies, `Krylov`, `ShermanMorrisonWoodbury`
+    `Ros2`, `Parareal`, the four shift strategies, `Krylov`, `ShermanMorrisonWoodbury`
     and `Backslash`.  A strategy's list of precomputed shift values becomes
     a tuple of Python ``complex``; the named forcing functions become the
     port's."""
@@ -128,6 +131,9 @@ def config_from(cfg):
             linesearch=cfg.linesearch)
     if name in ("Ros1", "Ros2"):
         return getattr(problems, name)(inner_alg=config_from(cfg.inner_alg))
+    if name == "Parareal":
+        return problems.Parareal(slabs=cfg.slabs, max_iters=cfg.max_iters,
+                                 reltol=cfg.reltol, plateau_factor=cfg.plateau_factor)
     if name == "Projection":
         return shifts.Projection(cfg.n_history)
     if name == "Heuristic":
@@ -191,7 +197,7 @@ def sparse_shift_ops_from_numpy(cols, data, diag, prec_inv, n, bs, cfg,
 
 def _lapack_pivots(piv, device):
     """JAX's 0-based LU pivots as torch's 1-based (LAPACK) int32 ones."""
-    return torch.tensor(np.asarray(piv, np.int32) + 1, device=device)
+    return torch.tensor(np.asarray(piv, np.int32) + 1, device=resolve_device(device))
 
 
 def sign_cache_from_numpy(E_lu, E_piv, Minvs, cs, device=None) -> SignFunctionCache:

@@ -1,5 +1,6 @@
-"""The port's counterpart of the JAX package's ``__graft_entry__.entry()``:
-one LRSIF Ros1 GDRE step on the banded n=256 Rail surrogate."""
+"""The port's counterpart of the JAX package's ``__graft_entry__.py``:
+`entry`, one LRSIF Ros1 GDRE step on the banded n=256 Rail surrogate, and
+`dryrun_multichip`, the multi-rank dry run."""
 
 from __future__ import annotations
 
@@ -49,3 +50,12 @@ def entry(device=None):
                                   abstol, CONFIG, lus)
 
     return step, (E_op, A_op, B_d, C_d, X0, TAU, shifts, abstol, lus)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The multi-rank dry run over ``n_devices`` ranks on ``device`` (default
+    the card; ``"cpu"`` spawns gloo ranks on the CPU):
+    `parallel.dryrun.dryrun_multichip`."""
+    from .parallel.dryrun import dryrun_multichip as _dry
+
+    return _dry(n_devices, device)

@@ -23,7 +23,7 @@ import warnings
 import torch
 import torch.nn.functional as F
 
-from .config import COMPRESSION_RTOL_FACTOR
+from .config import COMPRESSION_RTOL_FACTOR, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +90,9 @@ def lowrank(L, D=None, k: int | None = None) -> LowRank:
 
 
 def lr_zero(n: int, r: int, dtype: torch.dtype, device=None) -> LowRank:
-    """Rank-0 factorization with storage capacity ``r``."""
+    """Rank-0 factorization with storage capacity ``r`` on ``device``
+    (default the card: `config.resolve_device`)."""
+    device = resolve_device(device)
     return LowRank(L=torch.zeros((n, r), dtype=dtype, device=device),
                    D=torch.zeros((r, r), dtype=dtype, device=device), k=0)
 

@@ -4,10 +4,10 @@
 Ported branches: GALE by the host ADI or by (F)GMRES (low-rank
 right-hand side), by the dense sign-function solver or the SciPy oracle
 (`BartelsStewart`) and by the Kronecker solve; low-rank GDRE by Ros1 and
-Ros2, dense GDRE by Ros1–4; GARE by Kleinman–Newton with an ADI or GMRES
-inner solver.  Parareal raises `NotImplementedError` naming its ROADMAP
-item; a problem and algorithm that do not fit raise `TypeError` as in the
-JAX package.
+Ros2 or by parareal around the compiled Ros1 (`Parareal`), dense GDRE by
+Ros1–4; GARE by Kleinman–Newton with an ADI or GMRES inner solver.  A
+problem and algorithm that do not fit raise `TypeError` as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from .gmres import solve_gale_gmres
 from .lyapunov_dense import (
     _dense, sign_function_cache, solve_gale_dense, solve_gale_host, solve_gale_kronecker)
 from .newton import solve_gare_newton
+from .parareal import solve_gdre_parareal
 from .problems import (
     ADI, BartelsStewart, DRESolution, GALEProblem, GAREProblem, GDREProblem, GMRES,
     Kronecker, Newton, Parareal, Ros1, Ros2, Ros3, Ros4, quadratic_forcing,
@@ -26,10 +27,6 @@ from .residuals import residual
 from .rosenbrock_dense import solve_gdre_dense
 from .rosenbrock_lowrank import (
     feedback_K, solve_gdre_lowrank_ros1, solve_gdre_lowrank_ros2)
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def solve(prob, alg, **kwargs):
@@ -57,7 +54,7 @@ def solve(prob, alg, **kwargs):
     if isinstance(prob, GDREProblem):
         if prob.is_lowrank:
             if isinstance(alg, Parareal):
-                raise _not_ported("Parareal", 9)
+                return solve_gdre_parareal(prob, alg=alg, **kwargs)
             if isinstance(alg, Ros1):
                 return solve_gdre_lowrank_ros1(prob, alg, **kwargs)
             if isinstance(alg, Ros2):
@@ -82,7 +79,7 @@ __all__ = [
     "ADI", "BartelsStewart", "GMRES", "Kronecker", "Newton", "Parareal",
     "Ros1", "Ros2", "Ros3", "Ros4", "quadratic_forcing", "superlinear_forcing",
     "residual", "solve", "init", "ADISolver", "solve_gale_adi", "solve_gale_gmres",
-    "solve_gare_newton",
+    "solve_gare_newton", "solve_gdre_parareal",
     "solve_gdre_lowrank_ros1", "solve_gdre_lowrank_ros2", "feedback_K", "shifts",
     "solve_gale_dense", "solve_gale_host", "solve_gale_kronecker",
     "sign_function_cache", "solve_gdre_dense",

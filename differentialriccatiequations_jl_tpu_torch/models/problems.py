@@ -127,8 +127,15 @@ class Ros4:
 @dataclasses.dataclass(frozen=True)
 class Parareal:
     """Parareal-in-time around the compiled Ros1 fine propagator (the JAX
-    package's ``models/parareal.py`` config).  The solver is not ported yet
-    (ROADMAP Queue 1 item 9): `solve` raises for it."""
+    package's ``models/parareal.py`` config; the solver is
+    `models.parareal.solve_gdre_parareal`).
+
+    ``plateau_factor``: additionally stop once the boundary update stops
+    shrinking (``delta_k > plateau_factor · delta_{k-1}`` on **two
+    consecutive** iterations) — the detector for the arithmetic noise floor
+    of the low-rank combine.  ``None`` disables it.  A plateau stop below
+    the requested ``reltol`` is recorded as
+    ``parareal_info["stopped_by"] == "plateau"`` and warns."""
 
     slabs: int = 4
     max_iters: int | None = None

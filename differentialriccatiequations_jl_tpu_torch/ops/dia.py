@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import resolve_device
 from ..kernels import complex_route
 from ..kernels import dia_spmm as k1
 
@@ -193,9 +194,11 @@ def _scipy_symmetric(M) -> bool:
 
 def dia_from_scipy(M, dtype: torch.dtype | None = None, offsets=None,
                    device=None) -> DiaOp:
-    """Convert a scipy sparse matrix to `DiaOp` (host-side, setup only)."""
+    """Convert a scipy sparse matrix to `DiaOp` (host-side, setup only) on
+    ``device`` (default the card: `config.resolve_device`)."""
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     M = sp.csr_matrix(M)
     n = M.shape[0]
     np_dt = M.dtype if dtype is None else torch.empty((), dtype=dtype).numpy().dtype
@@ -209,9 +212,10 @@ def dia_from_scipy(M, dtype: torch.dtype | None = None, offsets=None,
 
 def dia_pencil(E, A, dtype: torch.dtype | None = None, device=None):
     """Build (E_op, A_op) on the **union** diagonal set so shifted combines
-    ``A + cE`` are pure data arithmetic."""
+    ``A + cE`` are pure data arithmetic; on ``device`` (default the card)."""
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     E = sp.csr_matrix(E)
     A = sp.csr_matrix(A)
     U = ((E != 0) + (A != 0)).tocsr()
@@ -221,6 +225,14 @@ def dia_pencil(E, A, dtype: torch.dtype | None = None, device=None):
     A_op = dia_from_scipy(A, dtype, offsets=offs, device=device)
     return (dataclasses.replace(E_op, nnz_=nnz_union),
             dataclasses.replace(A_op, nnz_=nnz_union))
+
+
+def is_banded(M, max_diags: int = 64) -> bool:
+    """Heuristic: is DIA storage efficient for this matrix?"""
+    try:
+        return len(dia_offsets(M)) <= max_diags
+    except (AttributeError, TypeError, ValueError):  # not a scipy sparse matrix
+        return False
 
 
 # --- algebra on shared diagonal sets -------------------------------------------

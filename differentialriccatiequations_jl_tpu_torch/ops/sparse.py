@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..kernels import bell_spmm as k2
 from ..kernels import complex_route
 
@@ -161,9 +162,11 @@ def _build_structure(M_csr, nb, bs, pattern, dtype):
 
 def bell_from_scipy(M, bs: int = 128, dtype: torch.dtype | None = None,
                     pattern=None, pattern_t=None, device=None) -> BellOp:
-    """Convert a scipy sparse matrix to `BellOp` (host-side, setup only)."""
+    """Convert a scipy sparse matrix to `BellOp` (host-side, setup only) on
+    ``device`` (default the card: `config.resolve_device`)."""
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     M = sp.csr_matrix(M)
     n = M.shape[0]
     np_dt = M.dtype if dtype is None else torch.empty((), dtype=dtype).numpy().dtype
@@ -188,9 +191,10 @@ def bell_from_scipy(M, bs: int = 128, dtype: torch.dtype | None = None,
 
 def bell_pencil(E, A, bs: int = 128, dtype: torch.dtype | None = None, device=None):
     """Build (E_op, A_op) on the **union** block pattern so shifted combines
-    ``A + cE`` are pure data arithmetic."""
+    ``A + cE`` are pure data arithmetic; on ``device`` (default the card)."""
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     E = sp.csr_matrix(E)
     A = sp.csr_matrix(A)
     nb = -(-E.shape[0] // bs)

@@ -1,0 +1,167 @@
+"""Device-mesh sharding for the DRE solver stack.
+
+Port of the JAX package's ``parallel/mesh.py``.  Its single abstraction is a
+1-D ``jax.sharding.Mesh`` with the problem dimension **row-partitioned**;
+here it is a 1-D `torch.distributed.device_mesh.DeviceMesh` over an
+initialised process group, one rank per device (NCCL with one GPU per rank
+on the card, gloo on the CPU):
+
+* operators are split by rows: a DIA operator's diagonals by columns of its
+  storage, a block-ELL operator by block rows (`shard_operator`);
+* tall-skinny factors ``L (n, r)`` and operands are split by rows
+  (`shard_tall`, `shard_lowrank`; the placement `row_sharded`);
+* small inner factors ``D``, feedbacks ``K`` and shift buffers are held
+  whole by every rank (`shard_replicated`; the placement `replicated`).
+
+Each rank holds its row shard as a plain tensor.  JAX's ``shard_map`` needs
+equal shards, hence the JAX package's ``pad_to=``; point-to-point sends do
+not, so rows split unevenly here: ``⌈n/W⌉`` rows (or block rows) per rank
+and a shorter last shard (`row_range`), with no padding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import resolve_device
+from ..lowrank import LowRank
+
+AXIS = "x"
+
+
+def make_mesh(n_devices: int | None = None, device=None, axis: str = AXIS):
+    """A 1-D `DeviceMesh` named ``axis`` over the initialised default
+    process group, whose size must be ``n_devices`` (default: the group's).
+
+    ``device`` defaults to the card (`config.resolve_device`: it raises
+    where there is none).  On the card the group must be NCCL and every rank
+    needs its own GPU: NCCL puts no two ranks on one GPU, so fewer GPUs than
+    ranks raises rather than falling back.  ``"cpu"`` needs a gloo group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = resolve_device(device)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    W = dist.get_world_size()
+    if n_devices is not None and n_devices != W:
+        raise ValueError(f"a mesh of {n_devices} ranks over a group of {W}")
+    backend = dist.get_backend()
+    if dev.type == "cuda":
+        if backend != "nccl":
+            raise ValueError(f"a mesh on the card needs an NCCL group, got {backend}")
+        count = torch.cuda.device_count()
+        if count < W:
+            raise RuntimeError(f"{W} ranks need {W} GPUs, found {count}: NCCL "
+                               "puts no two ranks on one GPU")
+        torch.cuda.set_device(dist.get_rank() % count)
+    elif dev.type == "cpu":
+        if backend != "gloo":
+            raise ValueError(f"a mesh on the CPU needs a gloo group, got {backend}")
+    else:
+        raise ValueError(f"no mesh for device {dev}")
+    return DeviceMesh(dev.type, list(range(W)), mesh_dim_names=(axis,))
+
+
+def row_sharded(mesh):
+    """The placement of a row-split tensor (``P("x", None)`` in JAX)."""
+    from torch.distributed.tensor import Shard
+
+    del mesh
+    return (Shard(0),)
+
+
+def replicated(mesh):
+    """The placement of a tensor every rank holds whole (``P()``)."""
+    from torch.distributed.tensor import Replicate
+
+    del mesh
+    return (Replicate(),)
+
+
+def rank_and_size(mesh, rank: int | None = None, world: int | None = None):
+    """``(rank, world)`` from ``mesh``, or given (emulated shards in one
+    process: ``mesh=None`` with both given)."""
+    if mesh is not None:
+        rank = mesh.get_local_rank() if rank is None else rank
+        world = mesh.size() if world is None else world
+    if rank is None or world is None:
+        raise ValueError("pass a mesh, or rank= and world=")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    return rank, world
+
+
+def row_range(n: int, world: int, rank: int, block: int = 1) -> tuple[int, int]:
+    """Rows ``[r0, r1)`` of ``rank``: ``⌈⌈n/block⌉/world⌉`` blocks of
+    ``block`` rows per rank, the last shard shorter.  Raises where a shard
+    would be empty."""
+    nb = -(-n // block)
+    per = -(-nb // world)
+    if (world - 1) * per >= nb:
+        raise ValueError(f"{nb} rows (blocks of {block}) cannot be split over "
+                         f"{world} ranks: the last shard would be empty")
+    return rank * per * block, min((rank + 1) * per * block, n)
+
+
+def _mesh_device(mesh, like: torch.Tensor):
+    if mesh is None:
+        return like.device
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def shard_operator(mesh, op, rank: int | None = None, world: int | None = None):
+    """The rank's row shard of ``op``: a `ShardedDiaOp` (the diagonals over
+    its rows) or a `ShardedBellOp` (its block rows, block columns rebased to
+    the halo-extended operand), each with its halo width ``H``.  ``op`` is
+    the whole operator, on the rank's device."""
+    from ..ops.dia import DiaOp
+    from ..ops.sparse import BellOp
+    from .sharded_ops import ShardedBellOp, ShardedDiaOp
+
+    rank, world = rank_and_size(mesh, rank, world)
+    if isinstance(op, DiaOp):
+        return ShardedDiaOp.from_op(mesh, op, rank, world)
+    if isinstance(op, BellOp):
+        return ShardedBellOp(mesh, op, rank=rank, world=world)
+    raise TypeError(f"cannot shard operator {type(op)}")
+
+
+def shard_tall(mesh, M: torch.Tensor, block: int = 1, rank: int | None = None,
+               world: int | None = None) -> torch.Tensor:
+    """The rank's rows of a tall ``(n, ...)`` tensor (`row_range` with
+    ``block``-row blocks: 1 for DIA, the block size for block-ELL)."""
+    rank, world = rank_and_size(mesh, rank, world)
+    r0, r1 = row_range(M.shape[0], world, rank, block)
+    return M[r0:r1].to(_mesh_device(mesh, M)).contiguous()
+
+
+def shard_lowrank(mesh, X: LowRank, block: int = 1, rank: int | None = None,
+                  world: int | None = None) -> LowRank:
+    """``X`` with its outer factor split by rows, its inner factor whole."""
+    return LowRank(L=shard_tall(mesh, X.L, block, rank, world),
+                   D=shard_replicated(mesh, X.D), k=X.k)
+
+
+def shard_replicated(mesh, M) -> torch.Tensor:
+    """``M`` whole on the rank's device."""
+    M = torch.as_tensor(M)
+    return M.to(_mesh_device(mesh, M))
+
+
+def unshard_tall(mesh, M_l: torch.Tensor, n: int, block: int = 1) -> torch.Tensor:
+    """The whole ``(n, ...)`` tensor from every rank's rows ``M_l`` (an
+    all-gather at the largest shard's shape, then trimmed)."""
+    import torch.distributed as dist
+
+    world = mesh.size()
+    per = -(-(-(-n // block)) // world) * block
+    buf = torch.zeros((per,) + tuple(M_l.shape[1:]), dtype=M_l.dtype, device=M_l.device)
+    buf[:M_l.shape[0]] = M_l
+    parts = [torch.empty_like(buf) for _ in range(world)]
+    dist.all_gather(parts, buf, group=mesh.get_group())
+    return torch.cat([p[:r1 - r0] for r, p in enumerate(parts)
+                      for r0, r1 in [row_range(n, world, r, block)]])

@@ -45,6 +45,13 @@ EPS = float(np.finfo(np.float64).eps)
 SHIFT_TOL, SHIFT_GATE = 1e-10, 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    # Beside the JAX package's CPU thread pool, torch's own pool slows the
+    # small products down; never raise the count again (MKL stalls).
+    torch.set_num_threads(1)
+
+
 def _recorder(mod):
     class Rec(mod.Observer):
         def __init__(self):
@@ -139,7 +146,7 @@ def test_dense_projection_matches_jax(symE, symA):
     E, A = random_pencil(50, symmetric_E=symE, symmetric_A=symA, seed=seed)
     G, S = random_rhs_lowrank(50, 4, seed=seed + 100)
     jprob = J.GALEProblem(E, A, J.lowrank(G, S))
-    _compare(jprob, gale_problem_from_numpy(E, A, _lr(jprob.C)), J.ADI())
+    _compare(jprob, gale_problem_from_numpy(E, A, _lr(jprob.C), device="cpu"), J.ADI())
 
 
 PENZL = JS.Cyclic(JS.Heuristic(10, 20, 20, alg_E=J.Backslash(), alg_A=J.Backslash()))
@@ -151,7 +158,7 @@ def test_rail_dia_penzl_matches_jax():
     E, A, _, C = rail_surrogate(371)
     jE, jA = jdia.dia_pencil(E, A)
     jprob = J.GALEProblem(jE, jA, J.lowrank(np.asarray(C).T.copy()))
-    tprob = gale_problem_from_numpy(_dia(jE), _dia(jA), _lr(jprob.C))
+    tprob = gale_problem_from_numpy(_dia(jE), _dia(jA), _lr(jprob.C), device="cpu")
     solver, _, _ = _compare(jprob, tprob, J.ADI(shifts=PENZL, maxiters=200))
     assert all(mu.imag == 0 for mu in solver.shifts)
 
@@ -162,7 +169,7 @@ def test_rail_bell_penzl_matches_jax():
     E, A, _, C = rail_surrogate(512)
     jE, jA = jsparse.bell_pencil(E, A, bs=128)
     jprob = J.GALEProblem(jE, jA, J.lowrank(np.asarray(C).T.copy()))
-    tprob = gale_problem_from_numpy(_bell(jE), _bell(jA), _lr(jprob.C))
+    tprob = gale_problem_from_numpy(_bell(jE), _bell(jA), _lr(jprob.C), device="cpu")
     _compare(jprob, tprob, J.ADI(shifts=PENZL, maxiters=200))
 
 
@@ -175,7 +182,7 @@ def test_complex_double_steps_match_jax(shifts):
     E, A, _, C = conv_diff_surrogate(256)
     jE, jA = jdia.dia_pencil(E, A)
     jprob = J.GALEProblem(jE, jA, J.lowrank(np.asarray(C).T.copy()))
-    tprob = gale_problem_from_numpy(_dia(jE), _dia(jA), _lr(jprob.C))
+    tprob = gale_problem_from_numpy(_dia(jE), _dia(jA), _lr(jprob.C), device="cpu")
     solver, _, _ = _compare(jprob, tprob, J.ADI(shifts=shifts))
     assert any(mu.imag != 0 for mu in solver.shifts)
 

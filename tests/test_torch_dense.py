@@ -127,7 +127,7 @@ def test_sign_cache_matches_jax(symE, symA):
     cs_j = np.asarray(jc.cs)
     assert np.abs(tc.cs.numpy() - cs_j).max() <= 1e-12 * np.abs(cs_j).max()
     assert _rel(tc.Minvs, jc.Minvs) < 1e-12
-    carried = convert.sign_cache_from_numpy(jc.E_lu, jc.E_piv, jc.Minvs, jc.cs)
+    carried = convert.sign_cache_from_numpy(jc.E_lu, jc.E_piv, jc.Minvs, jc.cs, device="cpu")
     assert carried.E_piv.dtype == tc.E_piv.dtype
     assert torch.equal(carried.E_piv, tc.E_piv)
     C = Gm @ S @ Gm.T + np.diag(np.arange(N, dtype=float))
@@ -187,7 +187,7 @@ def test_shift_lus_pivots_round_trip():
     jl = jcomp.build_shift_lus(jops.DenseOp(jnp.asarray(E)), jops.DenseOp(jnp.asarray(A)),
                                jnp.asarray(shifts))
     tl = tcomp.build_shift_lus(DenseOp(_t(E)), DenseOp(_t(A)), shifts)
-    carried = convert.shift_lus_from_numpy(jl.lu, jl.piv)
+    carried = convert.shift_lus_from_numpy(jl.lu, jl.piv, device="cpu")
     assert tl.lu.dtype == torch.complex128 and tl.lu.shape == (3, N, N)
     assert torch.equal(carried.piv, tl.piv)
     assert np.array_equal(carried.piv.numpy() - 1, np.asarray(jl.piv))
@@ -218,7 +218,7 @@ def test_adi_compiled_dense_odd_complex_buffer():
     lus = tcomp.build_step_shift_solvers(Eo, Ao, shifts)
     assert isinstance(lus, tcomp.ShiftLUs) and lus.lu.is_complex()
     X, _, iters, res = tcomp.adi_compiled(Eo, Ao, _t(Gm), _t(S), q,
-                                          lr_zero(n, 64, torch.float64), shifts,
+                                          lr_zero(n, 64, torch.float64, device="cpu"), shifts,
                                           abstol, cfg, lus)
     assert float(res) <= abstol
     prob = T.GALEProblem(Eo, Ao, lowrank(_t(Gm), _t(S)))
@@ -275,7 +275,8 @@ def test_adi_compiled_drops_columns_silently(monkeypatch):
 
     def run():
         return tcomp.adi_compiled(Eo, Ao, _t(Gm), _t(S), G,
-                                  lr_zero(N, 2 * G + 1, torch.float64), shifts, 0.0, cfg, lus)
+                                  lr_zero(N, 2 * G + 1, torch.float64, device="cpu"), shifts,
+                                  0.0, cfg, lus)
 
     with warnings.catch_warnings():
         warnings.simplefilter("error")

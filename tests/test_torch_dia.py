@@ -45,7 +45,7 @@ def _np(x):
 @pytest.fixture(scope="module")
 def ops():
     M = _random_banded(n=131, seed=3)
-    return M, jdia.dia_from_scipy(M), tdia.dia_from_scipy(M)
+    return M, jdia.dia_from_scipy(M), tdia.dia_from_scipy(M, device="cpu")
 
 
 def test_dia_storage_matches(ops):
@@ -58,7 +58,7 @@ def test_dia_storage_matches(ops):
     np.testing.assert_array_equal(_np(top.to_dense()), M.toarray())
     assert (top.to_scipy() != M).nnz == 0
     conv = convert.dia_op_from_numpy(np.asarray(jop.data), np.asarray(jop.data_t),
-                                     jop.offsets, jop.n, jop.nnz, jop.symmetric)
+                                     jop.offsets, jop.n, jop.nnz, jop.symmetric, device="cpu")
     assert conv == dataclasses.replace(top, data=conv.data, data_t=conv.data_t)
     np.testing.assert_array_equal(_np(conv.data), _np(top.data))
     for dt, jdt in ((torch.float32, jnp.float32),):
@@ -101,7 +101,7 @@ def test_dia_adjoint_blocks_and_algebra(ops):
                                       _np(jop.diag_blocks(bs, pad)))
     E = _random_banded(n=131, seed=5)
     jE, jA = jdia.dia_pencil(E, M)
-    tE, tA = tdia.dia_pencil(E, M)
+    tE, tA = tdia.dia_pencil(E, M, device="cpu")
     assert (tE.offsets, tE.nnz, tA.nnz) == (jE.offsets, jE.nnz, jA.nnz)
     for got, ref in ((tdia.shifted_dia(tE, tA, -0.7), jdia.shifted_dia(jE, jA, jnp.asarray(-0.7))),
                      (tdia.dia_lin_comb(tA, 2.5, tE), jdia.dia_lin_comb(jA, 2.5, jE)),
@@ -114,7 +114,7 @@ def test_dia_adjoint_blocks_and_algebra(ops):
 def test_dia_pair_op_matches_jax():
     E, A, _, _ = rail_surrogate(150)
     jE, jA = jdia.dia_pencil(E, A)
-    tE, tA = tdia.dia_pencil(E, A)
+    tE, tA = tdia.dia_pencil(E, A, device="cpu")
     jop = jdia.DiaPairOp(F=jdia.shifted_dia(jE, jA, jnp.asarray(-1.0)),
                          Et=jE.adjoint(), b=jnp.asarray(0.5))
     top = tdia.DiaPairOp(F=tdia.shifted_dia(tE, tA, -1.0), Et=tE.adjoint(), b=0.5)
@@ -133,7 +133,7 @@ def test_plain_matches_pallas_kernel_interpret_f32(fused):
     package's own tolerance for that kernel (2e-5)."""
     M = _random_banded(n=300, offsets=(-17, -1, 0, 1, 17), seed=14)
     jop = jdia.dia_from_scipy(M, dtype=np.float32)
-    top = tdia.dia_from_scipy(M, dtype=torch.float32)
+    top = tdia.dia_from_scipy(M, dtype=torch.float32, device="cpu")
     rng = np.random.default_rng(15)
     Xt = rng.standard_normal((4, top.N)).astype(np.float32)
     Z = rng.standard_normal((4, top.N)).astype(np.float32)

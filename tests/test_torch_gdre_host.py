@@ -23,6 +23,7 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -38,6 +39,13 @@ N = 371
 TSPAN = (4500.0, 4400.0)
 DT = -50.0
 EPS = float(np.finfo(np.float64).eps)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    # Beside the JAX package's CPU thread pool, torch's own pool slows the
+    # small products down; never raise the count again (MKL stalls).
+    torch.set_num_threads(1)
 
 
 def _recorder(mod):
@@ -84,7 +92,7 @@ def _problems():
     X0 = J.lowrank(np.linalg.solve(Ed, C.T), 0.01 * np.eye(C.shape[0]))
     jprob = J.GDREProblem(Ed, Ad, B, C, X0, TSPAN)
     tprob = gdre_problem_from_numpy(Ed, Ad, B, C, (np.asarray(X0.L), np.asarray(X0.D),
-                                                   int(X0.k)), TSPAN)
+                                                   int(X0.k)), TSPAN, device="cpu")
     return jprob, tprob
 
 

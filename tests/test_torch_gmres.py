@@ -99,7 +99,8 @@ def operators():
     return {
         "dense": (J.DenseOp(jnp.asarray(M)), T.DenseOp(torch.as_tensor(M)),
                   rng.standard_normal((n, 3)), {}),
-        "dia": (F, convert.dia_op_from_numpy(**_dia(F)), rng.standard_normal((200, 4)),
+        "dia": (F, convert.dia_op_from_numpy(**_dia(F), device="cpu"),
+                rng.standard_normal((200, 4)),
                 dict(negate=True, preconditioner="block_jacobi")),
     }
 
@@ -175,7 +176,7 @@ def gale():
     E, A = random_pencil(50, seed=7)
     Gm, S = random_rhs_lowrank(50, 4)
     jprob = J.GALEProblem(E, A, J.lowrank(Gm, S))
-    tprob = convert.gale_problem_from_numpy(E, A, _lr(jprob.C))
+    tprob = convert.gale_problem_from_numpy(E, A, _lr(jprob.C), device="cpu")
     X_ref = T.solve_gale_host(tprob.E, tprob.A, tprob.C.to_dense()).numpy()
     runs = {}
     with warnings.catch_warnings():
@@ -281,7 +282,7 @@ def test_specialize_shares_one_oracle():
     oracle, which keeps its position."""
     E, A = random_pencil(20, seed=3)
     G, S = random_rhs_lowrank(20, 2)
-    prob = convert.gale_problem_from_numpy(E, A, (G, S, 2))
+    prob = convert.gale_problem_from_numpy(E, A, (G, S, 2), device="cpu")
     alg = T.GMRES(preconditioner=T.ADI(shifts=T.Shifts.Cyclic((-1.0, -2.0, -3.0))))
     spec = tgmres.specialize(alg, prob)
     oracle = spec.preconditioner.shifts
@@ -301,7 +302,7 @@ def _gare_problems():
     E, A, B, C = rail_surrogate(N_NEWTON)
     jE, jA = jdia.dia_pencil(E, A)
     jp = J.GAREProblem(jE, jA, jlr.lowrank(jnp.asarray(1000.0 * B)), jlr.lowrank(jnp.asarray(C.T)))
-    tp = convert.gare_problem_from_numpy(_dia(jE), _dia(jA), _lr(jp.G), _lr(jp.Q))
+    tp = convert.gare_problem_from_numpy(_dia(jE), _dia(jA), _lr(jp.G), _lr(jp.Q), device="cpu")
     return jp, tp
 
 
@@ -349,8 +350,8 @@ def test_compiled_adi_preconditioner_matches_jax():
     jops = jcomp.build_dia_shift_ops(jE, jA, jnp.asarray(shifts))
     tops = convert.dia_shift_ops_from_numpy(
         np.asarray(jops.data), np.asarray(jops.data_t), np.asarray(jops.prec_inv),
-        jops.offsets, jops.n, jops.nnz_, jops.cfg)
-    tE, tA = (convert.dia_op_from_numpy(**_dia(op)) for op in (jE, jA))
+        jops.offsets, jops.n, jops.nnz_, jops.cfg, device="cpu")
+    tE, tA = (convert.dia_op_from_numpy(**_dia(op), device="cpu") for op in (jE, jA))
     rng = np.random.default_rng(4)
     kw = dict(maxiters=6, r_in=8, capacity=48)
     pj = jcomp.make_compiled_adi_preconditioner(jE, jA, jops, jnp.asarray(shifts), **kw)
@@ -391,7 +392,7 @@ def test_host_newton_gmres_matches_jax():
     E, A, B, C = rail_surrogate(40)
     Ed, Ad = E.toarray(), A.toarray()
     jprob = J.GAREProblem(Ed, Ad, J.lowrank(np.asarray(B)), J.lowrank(np.asarray(C).T))
-    tprob = convert.gare_problem_from_numpy(Ed, Ad, _lr(jprob.G), _lr(jprob.Q))
+    tprob = convert.gare_problem_from_numpy(Ed, Ad, _lr(jprob.G), _lr(jprob.Q), device="cpu")
     t = 8
     gm = J.GMRES(maxiters=5, maxrestarts=0, ignore_initial_guess=True, warn_convergence=False,
                  preconditioner=J.ADI(maxiters=t, shifts=JS.Cyclic(JS.Heuristic(t, t, t)),

@@ -1,9 +1,9 @@
 """The host API's routing and its block linear layer: `prepare` /
 `solve_blocklinear` (dense LU, SMW, Krylov with the diagonal or the block
 Jacobi preconditioner, real and complex shifted operators) against the JAX
-package's on the same numpy inputs, f64 on the CPU; the branch of `solve`
-that is not ported (Parareal) raises `NotImplementedError` naming its
-ROADMAP item, the GMRES and mixed-precision branches run; the compiled
+package's on the same numpy inputs, f64 on the CPU; `solve` dispatches a
+low-rank GDRE with `Parareal` to the parareal solver, the GMRES and
+mixed-precision branches run; the compiled
 paths' Krylov configuration is unchanged by the new `Krylov` fields.
 
 Tolerances: solutions within 1e-10 relative (the Krylov tolerance 1e-12
@@ -45,7 +45,8 @@ def _pencils():
         return dict(data=np.asarray(op.data), data_t=np.asarray(op.data_t),
                     offsets=op.offsets, n=op.n, nnz=op.nnz_, symmetric=op.symmetric)
 
-    return (jE, jA), (dia_op_from_numpy(**leaves(jE)), dia_op_from_numpy(**leaves(jA))), B
+    return ((jE, jA), (dia_op_from_numpy(**leaves(jE), device="cpu"),
+                       dia_op_from_numpy(**leaves(jA), device="cpu")), B)
 
 
 def _rel(a, b):
@@ -153,8 +154,11 @@ def test_unported_branches_raise():
     assert float(T.lr_norm(T.residual(gale, X))) < float(T.lr_norm(gale.C))
     X0 = T.lowrank(C.T.contiguous())
     lr = T.GDREProblem(tE, tA, B, C, X0, (1.0, 0.0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        T.solve(lr, T.Parareal(), dt=-0.5)
+    # Parareal is ported (ROADMAP Queue 1 item 9): `solve` reaches
+    # `solve_gdre_parareal`, whose slab check refuses 2 steps over 3 slabs.
+    with pytest.raises(ValueError, match="not divisible by slabs=3"):
+        T.solve(lr, T.Parareal(slabs=3), dt=-0.5, shifts=np.asarray([-1.0]),
+                cfg=T.models.compiled.CompiledConfig())
     # The dense branches are ported (ROADMAP Queue 1 item 7, PR 6); the
     # dense integrators take no inner algorithm but BartelsStewart.
     dense = T.GDREProblem(tE, tA, B, C, torch.eye(N, dtype=torch.float64), (1.0, 0.0))

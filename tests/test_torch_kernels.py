@@ -30,7 +30,7 @@ def test_wrapper_routes_by_device():
     """CPU tensors take the plain version (no launch); any other device
     than CPU or CUDA raises instead of falling back."""
     E, A, _, _ = rail_surrogate(64)
-    op, _ = tdia.dia_pencil(E, A)
+    op, _ = tdia.dia_pencil(E, A, device="cpu")
     X = torch.ones((64, 2), dtype=torch.float64)
     before = k1.launches
     torch.testing.assert_close(op.mm(X), k1.dia_mm_plain(op.data, op.offsets, X))
@@ -43,7 +43,7 @@ def test_wrapper_routes_by_device():
 def test_k2_wrapper_routes_by_device():
     """CPU tensors take K2's plain version (no launch); other devices raise."""
     E, A, _, _ = rail_surrogate(100)
-    op, _ = tsparse.bell_pencil(E, A, bs=16)
+    op, _ = tsparse.bell_pencil(E, A, bs=16, device="cpu")
     X = torch.ones((100, 3), dtype=torch.float64)
     before = k2.launches
     ref = torch.as_tensor(E.toarray()) @ X
@@ -122,11 +122,11 @@ def test_complex_route_combines_real_products(fmt, case):
     mu = -0.8 + 0.4j
     real_op = case.startswith("real")
     if fmt == "bell":
-        tE, tA = tsparse.bell_pencil(E, A, bs=64)
+        tE, tA = tsparse.bell_pencil(E, A, bs=64, device="cpu")
         F = tE if real_op else tsparse.shifted_bell(tE, tA, mu)
         data, plain, dim = F.data, lambda d, x: k2.bell_mm_plain(F.cols, d, x), 1
     else:
-        tE, tA = tdia.dia_pencil(E, A)
+        tE, tA = tdia.dia_pencil(E, A, device="cpu")
         F = tE if real_op else tdia.shifted_dia(tE, tA, mu)
         if fmt == "dia (N, q)":
             data, plain, dim = F.data, lambda d, x: k1.dia_mm_plain(d, F.offsets, x), 1

@@ -45,14 +45,14 @@ def _to_port(j):
                         "pair_index")}
     return convert.dia_shift_ops_from_numpy(
         np.asarray(j.data), np.asarray(j.data_t), np.asarray(j.prec_inv),
-        j.offsets, j.n, j.nnz_, j.cfg, pair_cfg=j.pair_cfg, **opt)
+        j.offsets, j.n, j.nnz_, j.cfg, pair_cfg=j.pair_cfg, **opt, device="cpu")
 
 
 @pytest.fixture(scope="module")
 def setup():
     E, A, B, _ = rail_surrogate(N)
     jE, jA = jdia.dia_pencil(E, A)
-    tE, tA = tdia.dia_pencil(E, A)
+    tE, tA = tdia.dia_pencil(E, A, device="cpu")
     jF0 = jopers.lin_comb(jA, -1.0 / (2.0 * TAU), jE)
     tF0 = topers.lin_comb(tA, -1.0 / (2.0 * TAU), tE)
     buffers = {"pair": tcomp.pair_encode_shifts(SHIFTS), "real": REAL_SHIFTS}

@@ -54,7 +54,7 @@ def test_lowrank_masking_capacity_and_norm():
     assert tX.k == int(jX.k) == k
     np.testing.assert_array_equal(tX.L.numpy(), np.asarray(jX.L))
     np.testing.assert_array_equal(tX.D.numpy(), np.asarray(jX.D))
-    tC = convert.lowrank_from_numpy(np.asarray(jX.L), np.asarray(jX.D), jX.k)
+    tC = convert.lowrank_from_numpy(np.asarray(jX.L), np.asarray(jX.D), jX.k, device="cpu")
     assert tC.k == k
     np.testing.assert_array_equal(tC.L.numpy(), tX.L.numpy())
     for r_new in (40, 6):

@@ -93,7 +93,8 @@ def operators():
     for name, mu, kw in (("dia", -0.7, dict(method="cg", negate=True)),
                          ("dia-complex", -0.6 + 0.3j, {})):
         F = jdia.shifted_dia(jE, jA, mu)
-        out[name] = (F, convert.dia_op_from_numpy(**_dia(F)), rng.standard_normal((200, 4)),
+        out[name] = (F, convert.dia_op_from_numpy(**_dia(F), device="cpu"),
+                     rng.standard_normal((200, 4)),
                      dict(preconditioner="block_jacobi", **kw))
     return out
 
@@ -144,7 +145,7 @@ def shift_ops():
     port's own."""
     E, A, _, _ = rail_surrogate(256)
     jE, jA = jdia.dia_pencil(E, A)
-    tE, tA = tdia.dia_pencil(E, A)
+    tE, tA = tdia.dia_pencil(E, A, device="cpu")
     jF0 = jopers.lin_comb(jA, -1.0 / (2.0 * TAU), jE)
     tF0 = topers.lin_comb(tA, -1.0 / (2.0 * TAU), tE)
     buf = tcomp.pair_encode_shifts(SHIFTS)
@@ -157,7 +158,7 @@ def shift_ops():
            ("et_data", "et_data_t", "pair_prec_re", "pair_prec_im", "pair_index")}
     carried = convert.dia_shift_ops_from_numpy(
         np.asarray(j.data), np.asarray(j.data_t), np.asarray(j.prec_inv), j.offsets, j.n,
-        j.nnz_, j.cfg, pair_cfg=j.pair_cfg, **opt)
+        j.nnz_, j.cfg, pair_cfg=j.pair_cfg, **opt, device="cpu")
     own = tcomp.build_dia_shift_ops(tE, tF0, buf, krylov_cfg=kt)
     return j, carried, own, buf
 
@@ -212,12 +213,12 @@ def test_compiled_gale_mixed_matches_jax(solve_dtype):
                                         cfg_j, lus)
     res_j = float(jlr.lr_norm(jres.residual_gale_lowrank(jE, jA, Cj, Xj, r_out=64))) / norm_c
 
-    tE, tA = tdia.dia_pencil(E, A)
+    tE, tA = tdia.dia_pencil(E, A, device="cpu")
     kt = dataclasses.replace(tcomp.default_dia_krylov(torch.float64, False),
                              solve_dtype=solve_dtype, refine_iters=3)
     tl = tcomp.build_dia_shift_ops(tE, tA, shifts, krylov_cfg=kt)
     Ct = T.lowrank(torch.as_tensor(C.T.copy()))
-    X0 = T.lr_zero(n, 160, torch.float64)
+    X0 = T.lr_zero(n, 160, torch.float64, device="cpu")
     r0 = residual_gale_lowrank(tE, tA, Ct, X0, r_out=32)
     Xt, _, it_t, _ = tcomp.adi_compiled(tE, tA, _mask_cols(r0.L, r0.k), r0.D, r0.k, X0, shifts,
                                         1e-10 * norm_c, tcomp.CompiledConfig(120, 10, 32), tl)
@@ -239,7 +240,7 @@ def test_newton_f32_inner_solves_match_jax():
     def lr(X):
         return np.asarray(X.L), np.asarray(X.D), int(X.k)
 
-    tp = convert.gare_problem_from_numpy(_dia(jE), _dia(jA), lr(jp.G), lr(jp.Q))
+    tp = convert.gare_problem_from_numpy(_dia(jE), _dia(jA), lr(jp.G), lr(jp.Q), device="cpu")
     kw = dict(capacity=128, reltol=1e-10, inner_solve_dtype="float32")
     Xj, ij = jcomp.solve_gare_newton_compiled(
         jp, shifts=jcomp.PerStepHeuristic(10, 12, 12),

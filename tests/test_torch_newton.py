@@ -48,6 +48,13 @@ CAPACITY = 128
 EPS = float(np.finfo(np.float64).eps)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    # Beside the JAX package's CPU thread pool, torch's own pool slows the
+    # small products down; never raise the count again (MKL stalls).
+    torch.set_num_threads(1)
+
+
 def _rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return np.linalg.norm(a - b) / np.linalg.norm(b)
@@ -70,7 +77,7 @@ def _problems(gscale: float):
     jp = jprob.GAREProblem(jE, jA, jlr.lowrank(jnp.asarray(gscale * B)),
                            jlr.lowrank(jnp.asarray(C.T)))
     tp = gare_problem_from_numpy(_dia_leaves(jE), _dia_leaves(jA),
-                                 _lr_leaves(jp.G), _lr_leaves(jp.Q))
+                                 _lr_leaves(jp.G), _lr_leaves(jp.Q), device="cpu")
     return jp, tp, E, A
 
 
@@ -235,7 +242,7 @@ def test_newton_block_ell_matches_dia(fixed_shift_solves):
     path's 128-wide ones, so only the solution is compared."""
     (X_dia, info_dia), _, tp, _, shifts = fixed_shift_solves
     E, A, _, _ = rail_surrogate(N)
-    bE, bA = tsparse.bell_pencil(E, A, bs=32)
+    bE, bA = tsparse.bell_pencil(E, A, bs=32, device="cpu")
     X, info = tcomp.solve_gare_newton_compiled(
         GAREProblem(bE, bA, tp.G, tp.Q), shifts=shifts, cfg=CFG,
         capacity=CAPACITY, reltol=1e-11)

@@ -33,6 +33,13 @@ JS = J.Shifts
 RELTOL = 1e-10
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    # Beside the JAX package's CPU thread pool, torch's own pool slows the
+    # small products down; never raise the count again (MKL stalls).
+    torch.set_num_threads(1)
+
+
 def _recorder(mod):
     class Rec(mod.Observer):
         def __init__(self):
@@ -68,7 +75,7 @@ def _problems(n=371):
     def lr(X):
         return np.asarray(X.L), np.asarray(X.D), int(X.k)
 
-    return jprob, gare_problem_from_numpy(Ed, Ad, lr(jprob.G), lr(jprob.Q))
+    return jprob, gare_problem_from_numpy(Ed, Ad, lr(jprob.G), lr(jprob.Q), device="cpu")
 
 
 @pytest.mark.parametrize(

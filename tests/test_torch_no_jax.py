@@ -1,5 +1,5 @@
-"""The port, `chip_smoke.py` and `profile_steps.py` import no JAX, and CPU tensors never reach
-kernels K1 and K2.
+"""The port (its ``parallel/`` layer and parareal included), `chip_smoke.py` and
+`profile_steps.py` import no JAX, and CPU tensors never reach kernels K1 and K2.
 
 Runs in a subprocess with ``jax`` blocked in ``sys.modules`` (the test
 process itself has JAX loaded by the conftest).
@@ -31,18 +31,19 @@ from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil, shifted_bell
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
 E, A, _, _ = rail_surrogate(100)
-E_op, _ = dia_pencil(E, A)  # _ is A's operator
+E_op, _ = dia_pencil(E, A, device="cpu")  # _ is A's operator
 X = torch.ones((100, 3), dtype=torch.float64)
 E_op.mm(X); E_op.tmm(X); E_op.mmT(X.T); E_op.mmT_axpby(X.T, X.T, 2.0, 1.0)
 assert k1.launches == 0, k1.launches
-bE, bA = bell_pencil(E, A, bs=16)
+bE, bA = bell_pencil(E, A, bs=16, device="cpu")
 F = shifted_bell(bE, bA, -1.0)
 F.mm(X); F.tmm(X); F.mm(X[:, 0]); F.tmm(X.T.contiguous().T)
 assert k2.launches == 0, k2.launches
 from differentialriccatiequations_jl_tpu_torch.lowrank import lowrank, lr_zero
 from differentialriccatiequations_jl_tpu_torch.models.residuals import residual_gare_lowrank
 from differentialriccatiequations_jl_tpu_torch.utils.callbacks import notify
-residual_gare_lowrank(E_op, E_op, lowrank(X[:, :2]), lowrank(X), lr_zero(100, 4, torch.float64))
+residual_gare_lowrank(E_op, E_op, lowrank(X[:, :2]), lowrank(X),
+                      lr_zero(100, 4, torch.float64, device="cpu"))
 notify(None, "gare_start", None, None)
 assert k1.launches == 0, k1.launches
 assert not torch.backends.cuda.matmul.allow_tf32
@@ -90,6 +91,20 @@ solve_gare_newton_compiled(are, shifts=np.asarray([-1.0]), cfg=CompiledConfig(4,
                                preconditioner=CappedADI(2, 8, 16)))
 solve(are, Newton(GMRES(maxiters=2, warn_convergence=False), maxiters=1))
 assert k1.launches == 0, k1.launches
+from differentialriccatiequations_jl_tpu_torch import Parareal, lr_with_capacity
+from differentialriccatiequations_jl_tpu_torch.parallel.mesh import shard_operator
+sol = solve(GDREProblem(E_op, _, C1, C1.T, lr_with_capacity(lowrank(C1), 8), (2.0, 0.0)),
+            Parareal(slabs=2, max_iters=1), dt=-0.5, shifts=np.asarray([-1.0]),
+            cfg=CompiledConfig(4, 2, 8), capacity=8)
+assert sol.parareal_info["iterations"] == 1 and len(sol.K) == 5
+Y = torch.ones((100, 3), dtype=torch.float64)
+sh = shard_operator(None, E_op, rank=1, world=2)
+sh.local_mm(sh.extend(Y)); sh.local_mm(sh.extend(Y), t=True)
+sb = shard_operator(None, bE, rank=0, world=2)
+sb.fwd.local_mm(sb.fwd.extend(Y)); sb.bwd.local_mm(sb.bwd.extend(Y[:, 0]))
+assert k1.launches == 0 and k2.launches == 0, (k1.launches, k2.launches)
+assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
+               for m, v in sys.modules.items() if v is not None)
 print("OK", len(names))
 """
 
@@ -99,7 +114,7 @@ def test_port_imports_no_jax_and_cpu_never_launches():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 30  # every module was imported
+    assert int(proc.stdout.split()[1]) >= 35  # every module was imported
 
 
 def test_no_jax_import_statements():

@@ -106,7 +106,7 @@ def ros2_sweeps(rail):
     """Both packages' Ros2 sweeps on the block-ELL pencil, with states."""
     E, A, B, C, L0 = rail
     shifts = _real_shifts(E, sp.csr_matrix(GAMMA * TAU * A - 0.5 * E), 8)
-    tE, tA = tsparse.bell_pencil(E, A, bs=BS)
+    tE, tA = tsparse.bell_pencil(E, A, bs=BS, device="cpu")
     jE, jA = jsparse.bell_pencil(E, A, bs=BS)
     tprob = GDREProblem(tE, tA, B, C, _x0_port(L0, C.shape[0]), TSPAN)
     jp = jprob.GDREProblem(jE, jA, B, C, _x0_jax(L0, C.shape[0]), TSPAN)
@@ -158,7 +158,8 @@ def test_ros2_step_block_ell_matches_jax(rail, ros2_sweeps):
     assert float(res) == float(steps[1][1])
     # the same step on the JAX package's shift tables
     shared = sparse_shift_ops_from_numpy(
-        j_ops.cols, j_ops.data, j_ops.diag_, j_ops.prec_inv, j_ops.n, j_ops.bs, j_ops.cfg)
+        j_ops.cols, j_ops.data, j_ops.diag_, j_ops.prec_inv, j_ops.n, j_ops.bs, j_ops.cfg,
+        device="cpu")
     X2, K2, iters2, _ = tcomp.ros2_step_compiled(
         tE, tA, torch.as_tensor(B), torch.as_tensor(C), tsol.X[0], TAU, shifts,
         abstol, CFG, shared)
@@ -169,7 +170,7 @@ def test_ros2_step_block_ell_matches_jax(rail, ros2_sweeps):
 def test_ros2_step_dia_matches_jax(rail):
     E, A, B, C, L0 = rail
     shifts = _real_shifts(E, sp.csr_matrix(GAMMA * TAU * A - 0.5 * E), 8)
-    tE, tA = tdia.dia_pencil(E, A)
+    tE, tA = tdia.dia_pencil(E, A, device="cpu")
     jE, jA = jdia.dia_pencil(E, A)
     t_ops = tcomp.build_step_shift_solvers(
         tE, lin_comb(scale_op(tA, GAMMA * TAU), -0.5, tE), shifts)
@@ -188,7 +189,7 @@ def test_ros2_step_dia_matches_jax(rail):
 def test_ros1_sweep_block_ell_matches_jax(rail):
     E, A, B, C, L0 = rail
     shifts = _real_shifts(E, sp.csr_matrix(A - E / (2.0 * TAU)), 8)
-    tE, tA = tsparse.bell_pencil(E, A, bs=BS)
+    tE, tA = tsparse.bell_pencil(E, A, bs=BS, device="cpu")
     jE, jA = jsparse.bell_pencil(E, A, bs=BS)
     tsol = tcomp.solve_gdre_ros1_compiled(
         GDREProblem(tE, tA, B, C, _x0_port(L0, C.shape[0]), TSPAN),
@@ -209,7 +210,7 @@ def test_adi_sparse_shift_ops_where_bs_does_not_divide_n():
     n = 100
     E, A, _, C = rail_surrogate(n)
     shifts = _real_shifts(E, A, 8)
-    tE, tA = tsparse.bell_pencil(E, A, bs=16)
+    tE, tA = tsparse.bell_pencil(E, A, bs=16, device="cpu")
     ops = tcomp.build_sparse_shift_ops(tE, tA, shifts)
     assert torch.isfinite(ops.prec_inv).all()
     jE, jA = jsparse.bell_pencil(E, A, bs=16)

@@ -122,7 +122,7 @@ def test_projection_known_value():
     jp, tp = _both(*_penzl_pencil())
     o = S.init_shifts(S.Projection(2), tp)
     assert isinstance(o, S.BufferedOracle)
-    o.update(lr_zero(3, 1, torch.float64), torch.ones((3, 1), dtype=torch.float64))
+    o.update(lr_zero(3, 1, torch.float64, device="cpu"), torch.ones((3, 1), dtype=torch.float64))
     jo = JS.init_shifts(JS.Projection(2), jp)
     jo.update(jlr_zero(3, 1, np.float64), np.ones((3, 1)))
     v = o.take()

@@ -38,15 +38,16 @@ def _leaves(op):
 @pytest.mark.parametrize("n,bs", [(96, 16), (128, 128)])
 def test_construction_matches_jax(n, bs):
     E, A, _, _ = rail_surrogate(n)
-    pairs = [(tsparse.bell_from_scipy(A, bs=bs), jsparse.bell_from_scipy(A, bs=bs))]
-    pairs += list(zip(tsparse.bell_pencil(E, A, bs=bs), jsparse.bell_pencil(E, A, bs=bs)))
+    pairs = [(tsparse.bell_from_scipy(A, bs=bs, device="cpu"), jsparse.bell_from_scipy(A, bs=bs))]
+    pairs += list(zip(tsparse.bell_pencil(E, A, bs=bs, device="cpu"),
+                      jsparse.bell_pencil(E, A, bs=bs)))
     for top, jop in pairs:
         assert top.cols.dtype == torch.int32
         for got, ref in zip(_leaves(top), _leaves(jop)):
             np.testing.assert_array_equal(got, ref)
         assert top.n == jop.n and top.bs == jop.bs and top.nnz == jop.nnz
         np.testing.assert_allclose(top.to_dense().numpy(), np.asarray(jop.to_dense()))
-        conv = bell_op_from_numpy(*_leaves(jop), jop.n, jop.bs)
+        conv = bell_op_from_numpy(*_leaves(jop), jop.n, jop.bs, device="cpu")
         for got, ref in zip(_leaves(conv), _leaves(top)):
             np.testing.assert_array_equal(got, ref)
 
@@ -54,7 +55,7 @@ def test_construction_matches_jax(n, bs):
 @pytest.fixture(scope="module")
 def pencil96():
     E, A, _, _ = rail_surrogate(96)
-    return tsparse.bell_pencil(E, A, bs=16), jsparse.bell_pencil(E, A, bs=16)
+    return tsparse.bell_pencil(E, A, bs=16, device="cpu"), jsparse.bell_pencil(E, A, bs=16)
 
 
 def test_mm_tmm_match_xla_f64(pencil96):
@@ -88,7 +89,7 @@ def pallas_interpret():
 def test_mm_tmm_match_pallas_interpret_f32(q, pallas_interpret):
     n, bs = 300, 128
     E, A, _, _ = rail_surrogate(n)
-    (tE, tA), (jE, jA) = (tsparse.bell_pencil(E, A, bs=bs, dtype=torch.float32),
+    (tE, tA), (jE, jA) = (tsparse.bell_pencil(E, A, bs=bs, dtype=torch.float32, device="cpu"),
                           jsparse.bell_pencil(E, A, bs=bs, dtype=np.float32))
     F_t = tsparse.shifted_bell(tE, tA, -1.0)
     F_j = jsparse.shifted_bell(jE, jA, -1.0)
@@ -112,7 +113,8 @@ def test_lin_comb_scale_shift_match_jax(pencil96):
         for got, ref in zip(_leaves(top), _leaves(jop)):
             np.testing.assert_array_equal(got, ref)
     with pytest.raises(ValueError, match="pattern"):
-        tsparse.bell_lin_comb(tA, 1.0, tsparse.bell_from_scipy(rail_surrogate(96)[1], bs=32))
+        tsparse.bell_lin_comb(
+            tA, 1.0, tsparse.bell_from_scipy(rail_surrogate(96)[1], bs=32, device="cpu"))
 
 
 def test_diag_blocks_match_jax_when_bs_divides_n(pencil96):
@@ -126,7 +128,8 @@ def test_diag_blocks_pad_identity_where_bs_does_not_divide_n():
     """n = 100, bs = 16: the last block has 12 padded rows.  The JAX block
     is singular there; the port's carries identity and inverts finitely."""
     E, A, _, _ = rail_surrogate(100)
-    (tE, tA), (jE, jA) = tsparse.bell_pencil(E, A, bs=16), jsparse.bell_pencil(E, A, bs=16)
+    (tE, tA) = tsparse.bell_pencil(E, A, bs=16, device="cpu")
+    (jE, jA) = jsparse.bell_pencil(E, A, bs=16)
     got = tsparse.shifted_bell(tE, tA, -1.0).diag_blocks()
     ref = np.asarray(jsparse.shifted_bell(jE, jA, -1.0).diag_blocks())
     np.testing.assert_array_equal(got[:-1].numpy(), ref[:-1])

@@ -73,11 +73,20 @@ both compilers started together, and then:
     iterations) beside the serial 32-step sweep, counting K1 launches; then
     the row-sharded DIA and block-ELL products at n=79841 in 4 emulated
     shards (each shard's local product on the halo-extended operand through
-    K1 or K2) against the unsharded products and the plain versions.
+    K1 or K2) against the unsharded products and the plain versions;
+17. runs the row-sharded compiled steps (ROADMAP item 10b): at n=79841 on
+    the card, phase 3's 4 Ros1 steps and one Newton step from its X0, once
+    without a group and once on row shards (128-row blocks) over a
+    world-size-1 NCCL group, equal ADI iterations, Krylov iterations within
+    2 %, LDLᵀ and K within 1e-10, printing each wall, K1 launches,
+    collectives per step and peak memory (one card has no neighbour: the
+    halo exchanges send nothing); then the JAX package's sharded-sweep test
+    configuration at n=1357 over 4 gloo ranks on the host's CPU against one
+    process.
 
 Phases 10, 11, 14 and 15 hold each solver's residual against an
 independent evaluation (`residual`).  Every full-size path (phases 3, 5, 7,
-10, 11, 13, 14, 15 and 16) records the products it hands K1 and K2
+10, 11, 13, 14, 15, 16 and 17) records the products it hands K1 and K2
 (`ProductLog`: product, dtype, width, operand strides); after the run each
 kernel is held against its plain version at every one of them.
 
@@ -86,7 +95,8 @@ kernel is held against its plain version at every one of them.
 builds the kernels and runs phase 7 alone (at another capacity of ``X``);
 ``--host-only`` builds them and runs phases 8 to 11, ``--dense-only``
 phases 12 and 13, ``--gmres-only`` phase 14 and ``--mixed-only`` phase 15
-(both flags: both phases), ``--parareal-only`` phase 16.
+(both flags: both phases), ``--parareal-only`` phase 16, ``--sharded-only``
+phase 17.
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -112,6 +122,7 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
+import torch.distributed as dist
 
 from differentialriccatiequations_jl_tpu_torch import (
     ADI, GMRES, BartelsStewart, GALEProblem, Krylov, Kronecker, Newton, Ros1, Ros2, Ros3, Ros4,
@@ -126,7 +137,8 @@ from differentialriccatiequations_jl_tpu_torch.lowrank import (
 from differentialriccatiequations_jl_tpu_torch.models import compiled
 from differentialriccatiequations_jl_tpu_torch.models import lyapunov_dense
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
-    _ROS2_GAMMA, CappedADI, CompiledConfig, PerStepHeuristic, _residual_norm,
+    _ROS2_GAMMA, PREC_BS, CappedADI, CompiledConfig, PerStepHeuristic, _newton_step_compiled,
+    _residual_norm,
     build_dia_shift_ops, default_dia_krylov, pair_encode_shifts, ros1_initial_residual,
     ros1_step_compiled, solve_gare_newton_compiled, solve_gdre_ros1_compiled,
     solve_gdre_ros2_compiled)
@@ -144,8 +156,12 @@ from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil, shifte
 from differentialriccatiequations_jl_tpu_torch.ops.operators import DenseOp, lin_comb, op_astype
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import (
     bell_from_scipy, bell_pencil, shifted_bell)
+from differentialriccatiequations_jl_tpu_torch.parallel import dryrun
+from differentialriccatiequations_jl_tpu_torch.parallel import mesh as mesh_mod
+from differentialriccatiequations_jl_tpu_torch.parallel import sharded_ops
 from differentialriccatiequations_jl_tpu_torch.parallel.dryrun import free_port
-from differentialriccatiequations_jl_tpu_torch.parallel.mesh import make_mesh, shard_operator
+from differentialriccatiequations_jl_tpu_torch.parallel.mesh import (
+    GROUP_TIMEOUT, make_mesh, shard_lowrank, shard_operator)
 from differentialriccatiequations_jl_tpu_torch.utils import timers
 from differentialriccatiequations_jl_tpu_torch.utils.callbacks import Observer
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import (
@@ -347,6 +363,19 @@ PARAREAL_TAU = 5.0
 PARAREAL_EXACT_TOL = 1e-8
 PARAREAL_MESH_TOL = 1e-12
 SHARDS = 4
+# The row-sharded compiled steps (phase 17).  17a: phase 3's 4 Ros1 steps
+# and one Newton step from its X0 (shifts of its real buffer, G =
+# lowrank(B), Q = lowrank(Cᵀ) at capacity 16, the GARE residual as the
+# entry residual) at n=79841, on row shards over a world-size-1 NCCL group,
+# held to the same runs without a group: equal ADI iterations, Krylov
+# iterations within KRYLOV_REL_TOL, LDLᵀ and K within SHARDED_TOL (the JAX
+# package's tests/test_sharded_gdre.py:170-175).  17b: the JAX test's sweep
+# (dryrun.ros1_sweep) at n=1357 over SHARDED_CPU_RANKS gloo ranks on the
+# host's CPU, held to one process.
+SHARDED_TOL = 1e-10
+N_SHARDED_CPU = 1357
+SHARDED_CPU_RANKS = 4
+COLLECTIVE_CALLS = 200
 
 
 class PhaseError(RuntimeError):
@@ -737,52 +766,80 @@ def phase_small_step():
           f"n=256: card and CPU steps differ beyond {STEP_REL_TOL}")
 
 
-def phase_full_step(E, A, B, C, dev):
-    """The main path at full size: 3 pair-buffer Ros1 steps then 1
-    all-real-buffer step.  Returns the K1 launches of the run."""
-    dt, tau, capacity = torch.float64, 10.0, 96
-    cfg = CompiledConfig(maxiters=8, compression_interval=4, r_res=48)
-    abstol = 1e-8
-    t0 = time.perf_counter()
+# Phase 3's configuration: 3 pair-buffer Ros1 steps then 1 all-real-buffer
+# step, τ = 10, capacity 96; phase 17a runs it again on row shards.
+FULL_STEP_TAU = 10.0
+FULL_STEP_CFG = CompiledConfig(maxiters=8, compression_interval=4, r_res=48)
+FULL_STEP_ABSTOL = 1e-8
+FULL_STEP_PLAN = ["pair"] * 3 + ["real"]
+FULL_STEP_BUFFERS = {"pair": pair_encode_shifts(SHIFTS), "real": np.asarray([-0.5, -1.0, -2.0])}
+
+
+def full_step_inputs(E, A, B, C, dev):
+    """Phase 3's operands at full size on ``dev``: ``E``, ``A`` (DIA), ``B``,
+    ``C`` and X0 = lowrank(E⁻¹Cᵀ, 0.01·I) at capacity 96."""
+    dt = torch.float64
     E_op, A_op = dia_pencil(E, A, dtype=dt, device=dev)
-    B_d = torch.as_tensor(B, dtype=dt, device=dev)
-    C_d = torch.as_tensor(C, dtype=dt, device=dev)
     L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
     X0 = lr_with_capacity(lowrank(torch.as_tensor(L0, dtype=dt, device=dev),
                                   0.01 * torch.eye(C.shape[0], dtype=dt, device=dev)),
-                          capacity)
-    F_base = lin_comb(A_op, -1.0 / (2.0 * tau), E_op)
+                          CAPACITY)
+    return (E_op, A_op, torch.as_tensor(B, dtype=dt, device=dev),
+            torch.as_tensor(C, dtype=dt, device=dev), X0)
+
+
+def step_ops(E_op, A_op):
+    """The shifted operators of both of phase 3's buffers."""
+    F_base = lin_comb(A_op, -1.0 / (2.0 * FULL_STEP_TAU), E_op)
     cache = {}
-    buffers = {"pair": pair_encode_shifts(SHIFTS),
-               "real": np.asarray([-0.5, -1.0, -2.0])}
-    ops = {name: build_dia_shift_ops(E_op, F_base, s, block_cache=cache)
-           for name, s in buffers.items()}
+    return {name: build_dia_shift_ops(E_op, F_base, s, block_cache=cache)
+            for name, s in FULL_STEP_BUFFERS.items()}
+
+
+def run_full_steps(E_op, A_op, B_d, C_d, X0, ops):
+    """Phase 3's 4 steps from X0, each with its wall (synchronized) and its
+    K1 launches, Krylov iterations and collectives.  Returns the inputs of
+    each step and rows (buffer, wall, ADI iterations, residual, X, K,
+    launches, Krylov iterations, collectives)."""
+    inputs, rows = [], []
+    X = X0
+    for name in FULL_STEP_PLAN:
+        inputs.append(X)
+        l0, s0 = k1.launches, blocklinear.krylov_iterations
+        c0 = collections.Counter(mesh_mod.collectives)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        X, K, iters, res = ros1_step_compiled(E_op, A_op, B_d, C_d, X, FULL_STEP_TAU,
+                                              FULL_STEP_BUFFERS[name], FULL_STEP_ABSTOL,
+                                              FULL_STEP_CFG, ops[name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rows.append((name, wall, iters, float(res), X, K, k1.launches - l0,
+                     blocklinear.krylov_iterations - s0,
+                     dict(mesh_mod.collectives - c0)))
+    return inputs, rows
+
+
+def phase_full_step(E, A, B, C, dev):
+    """The main path at full size: 3 pair-buffer Ros1 steps then 1
+    all-real-buffer step.  Returns the K1 launches of the run."""
+    tau, cfg = FULL_STEP_TAU, FULL_STEP_CFG
+    t0 = time.perf_counter()
+    E_op, A_op, B_d, C_d, X0 = full_step_inputs(E, A, B, C, dev)
+    ops = step_ops(E_op, A_op)
     torch.cuda.synchronize()
     log(f"[n={N_FULL}] setup {time.perf_counter() - t0:.2f} s; Krylov: pair "
         f"{ops['pair'].cfg.method}, real {ops['real'].cfg.method}; "
         f"nnz {E_op.nnz}, offsets {E_op.offsets}")
 
-    plan = ["pair"] * 3 + ["real"]
-    inputs, rows = [], []
     torch.cuda.reset_peak_memory_stats()
-    X = X0
     k1.launches = 0  # the main path's run starts here
     blocklinear.krylov_iterations = 0
-    for name in plan:
-        inputs.append(X)
-        l0, s0 = k1.launches, blocklinear.krylov_iterations
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        X, K, iters, res = ros1_step_compiled(E_op, A_op, B_d, C_d, X, tau,
-                                              buffers[name], abstol, cfg, ops[name])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        rows.append((name, wall, iters, float(res), X, K,
-                     k1.launches - l0, blocklinear.krylov_iterations - s0))
+    inputs, rows = run_full_steps(E_op, A_op, B_d, C_d, X0, ops)
     launches = k1.launches  # the main path's run ends here
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    for j, (name, wall, iters, res, Xn, K, nl, ns) in enumerate(rows):
+    for j, (name, wall, iters, res, Xn, K, nl, ns, _) in enumerate(rows):
         _, res0 = ros1_initial_residual(E_op, A_op, B_d, C_d, inputs[j], tau, cfg)
         start = float(_residual_norm(res0.L, res0.D))  # cols >= k are zero
         finite = all(bool(torch.isfinite(t).all()) for t in (Xn.L, Xn.D, K))
@@ -2318,6 +2375,186 @@ def phase_parareal(E, A, B, C, dev, k1_launches, k2_launches):
     return {"K1": max(err1, e1), "K2": e2}
 
 
+def with_peak(run):
+    """``run()`` and the peak device memory (GiB) it allocated above what
+    was allocated when it started."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def collective_costs(mesh, op):
+    """Host µs per call (`COLLECTIVE_CALLS` calls, ending in a
+    synchronize) of a Krylov dot on a ``(14, nl)`` lane-major pair state,
+    of its all-reduce (`mesh.row_allreduce` of a scalar) and of one halo
+    exchange of that state, on ``mesh``."""
+    gen = torch.Generator(device=CARD).manual_seed(17)
+    Xt = torch.randn((14, op.N), generator=gen, dtype=torch.float64, device=CARD)
+    s = blocklinear._vdot(Xt, Xt)
+    calls = {"dot": lambda: blocklinear._vdot(Xt, Xt),
+             "all_reduce": lambda: mesh_mod.row_allreduce(s),
+             "halo_exchange": lambda: sharded_ops.halo_exchange(Xt, op.H, mesh, dim=1)}
+    costs = {}
+    with mesh_mod.use_mesh(mesh):
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(COLLECTIVE_CALLS):
+                call()
+            torch.cuda.synchronize()
+            costs[name] = (time.perf_counter() - t0) * 1e6 / COLLECTIVE_CALLS
+    return costs
+
+
+def newton_step_run(E_op, A_op, B_d, C_d, X0, mesh=None):
+    """17a's Newton step on phase 3's operands (split over ``mesh`` if
+    given): (X, K at X gathered, ADI iterations, wall, K1 launches, Krylov
+    iterations, collectives)."""
+    G = lr_with_capacity(lowrank(B_d), 16)
+    Q = lr_with_capacity(lowrank(C_d.T.contiguous()), 16)
+    shifts = FULL_STEP_BUFFERS["real"]
+    if mesh is not None:
+        E_op, A_op, B_d, C_d = dryrun.shard_pencil(mesh, E_op, A_op, B_d, C_d)
+        X0, G, Q = (shard_lowrank(mesh, Y, PREC_BS) for Y in (X0, G, Q))
+    lus = build_dia_shift_ops(E_op, A_op, shifts)
+    l0, s0 = k1.launches, blocklinear.krylov_iterations
+    c0 = collections.Counter(mesh_mod.collectives)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    K0 = feedback_K(E_op, B_d, X0)
+    res = residual_gare_lowrank(E_op, A_op, G, Q, X0, r_out=FULL_STEP_CFG.r_res)
+    X, iters, _ = _newton_step_compiled(E_op, A_op, B_d, X0, K0, res, shifts,
+                                        FULL_STEP_ABSTOL, FULL_STEP_CFG, lus)
+    K = feedback_K(E_op, B_d, X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    X, K = dryrun.gather_state(mesh, X, K, E_op.n)
+    return (X, K, iters, wall, k1.launches - l0, blocklinear.krylov_iterations - s0,
+            dict(mesh_mod.collectives - c0))
+
+
+def hold_sharded(tag, got, ref, krylov):
+    """A sharded run (X, K, ADI iterations) against its twin without a
+    group; ``krylov``: (sharded, twin) Krylov iterations."""
+    dX, dK = lr_rel_diff(got[0], ref[0]), rel_diff(got[1], ref[1])
+    log(f"{tag}: sharded vs unsharded: ADI {got[2]} / {ref[2]}, Krylov {krylov[0]} / "
+        f"{krylov[1]}, LDLᵀ {dX:.3e}, K {dK:.3e}")
+    check(got[2] == ref[2], f"{tag}: ADI iterations differ ({got[2]}, {ref[2]})")
+    check(abs(krylov[0] - krylov[1]) <= KRYLOV_REL_TOL * krylov[1],
+          f"{tag}: Krylov iterations differ beyond {KRYLOV_REL_TOL:.0%}: {krylov}")
+    check(dX <= SHARDED_TOL and dK <= SHARDED_TOL,
+          f"{tag}: LDLᵀ {dX:.3e}, K {dK:.3e} beyond {SHARDED_TOL}")
+
+
+def phase_sharded_steps_card(E, A, B, C, dev):
+    """Phase 17a: phase 3's 4 Ros1 steps and 17a's Newton step at n=79841,
+    without a group, then on row shards (`shard_operator(...,
+    block=PREC_BS)`) over a world-size-1 NCCL group, each sharded run under
+    a `ProductLog`.  One card has no neighbour: the halo exchanges send
+    nothing, and the all-reduces reduce one rank.  Returns ({path: K1
+    launches}, K1 max abs error)."""
+    tag = f"[sharded steps n={N_FULL}]"
+    inputs = full_step_inputs(E, A, B, C, dev)
+    peaks = {}
+    (_, ref_rows), peaks["ros1"] = with_peak(
+        lambda: run_full_steps(*inputs, step_ops(*inputs[:2])))
+    ref_newton, peaks["newton"] = with_peak(lambda: newton_step_run(*inputs))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, timeout=GROUP_TIMEOUT)
+    out, launches, err = {}, {}, 0.0
+    try:
+        mesh = make_mesh(1)
+        E_s, A_s, B_s, C_s = dryrun.shard_pencil(mesh, *inputs[:4])
+        X0_s = shard_lowrank(mesh, inputs[4], PREC_BS)
+        ops = step_ops(E_s, A_s)
+
+        def ros1():
+            k1.launches = 0  # this path's run starts here
+            (_, out["ros1"]), out["ros1_peak"] = with_peak(
+                lambda: run_full_steps(E_s, A_s, B_s, C_s, X0_s, ops))
+            return k1.launches  # ... and ends here
+
+        def newton():
+            k1.launches = 0  # this path's run starts here
+            out["newton"], out["newton_peak"] = with_peak(
+                lambda: newton_step_run(*inputs, mesh=mesh))
+            return k1.launches  # ... and ends here
+
+        for name, run in (("sharded_ros1", ros1), ("sharded_newton", newton)):
+            launches[name], e = checked(f"{tag} {name}", "K1", run)
+            err = max(err, e)
+        gathered = [dryrun.gather_state(mesh, row[4], row[5], E_s.n) for row in out["ros1"]]
+        costs = collective_costs(mesh, E_s)
+    finally:
+        dist.destroy_process_group()
+    log(f"{tag} 1 rank over NCCL: the halo exchanges have no neighbour and send "
+        "nothing; no cross-card traffic is measured")
+    for j, (row, ref, (X, K)) in enumerate(zip(out["ros1"], ref_rows, gathered)):
+        name, wall, iters, res, _, _, nl, ns, coll = row
+        log(f"{tag} Ros1 step {j + 1} ({name} buffer): wall {wall:.3f} s sharded, "
+            f"{ref[1]:.3f} s unsharded; ADI iters {iters}, res {res:.6e}; K1 launches {nl} "
+            f"(unsharded {ref[6]}); collectives {coll}")
+        hold_sharded(f"{tag} Ros1 step {j + 1}", (X, K, iters), (ref[4], ref[5], ref[2]),
+                     (ns, ref[7]))
+    X, K, iters, wall, nl, ns, coll = out["newton"]
+    log(f"{tag} Newton step: wall {wall:.3f} s sharded, {ref_newton[3]:.3f} s unsharded; "
+        f"ADI iters {iters}; K1 launches {nl} (unsharded {ref_newton[4]}); collectives {coll}")
+    hold_sharded(f"{tag} Newton step", (X, K, iters), ref_newton[:3], (ns, ref_newton[5]))
+    log(f"{tag} peak device memory above the run's start, sharded (unsharded): Ros1 "
+        f"steps {out['ros1_peak']:.3f} ({peaks['ros1']:.3f}) GiB, Newton step "
+        f"{out['newton_peak']:.3f} ({peaks['newton']:.3f}) GiB; K1 launches {launches}")
+    log(f"{tag} host µs per call, {COLLECTIVE_CALLS} calls ending in a synchronize: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in costs.items()) + f"; {card_line()}")
+    for name, n_launch in launches.items():
+        check(n_launch > 0, f"{tag} {name}: K1 was not launched")
+    return launches, err
+
+
+def sweep_rank(dev, n):
+    """Phase 17b's rank: `dryrun.ros1_sweep` at ``n`` over the group's
+    ranks; the gathered LDLᵀ and Ks as numpy arrays, the counts."""
+    X, Ks, adi, kry = dryrun.ros1_sweep(dev, n, make_mesh(device=dev.type))
+    return (X.L @ X.D @ X.L.T).numpy(), [K.numpy() for K in Ks], adi, kry
+
+
+def phase_sharded_sweep_cpu():
+    """Phase 17b: the JAX test's Ros1 sweep at n=1357 over
+    `SHARDED_CPU_RANKS` gloo ranks on the host's CPU (NCCL puts no two ranks
+    on one GPU) against one process: equal ADI iterations, Krylov
+    iterations within `KRYLOV_REL_TOL`, every K and the final LDLᵀ within
+    `SHARDED_TOL`."""
+    tag = f"[sharded sweep n={N_SHARDED_CPU}, {SHARDED_CPU_RANKS} gloo ranks]"
+    t0 = time.perf_counter()
+    X, Ks, adi, kry = dryrun.run_ranks(sweep_rank, SHARDED_CPU_RANKS, "cpu",
+                                       args=(N_SHARDED_CPU,))
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xr, Ksr, adir, kryr = dryrun.ros1_sweep(torch.device("cpu"), N_SHARDED_CPU)
+    wall_ref = time.perf_counter() - t0
+    dX = rel_diff(torch.as_tensor(X), Xr.L @ Xr.D @ Xr.L.T)
+    dK = max(rel_diff(torch.as_tensor(a), b) for a, b in zip(Ks, Ksr))
+    log(f"{tag}: {wall:.3f} s (spawn included), one process {wall_ref:.3f} s; ADI {adi} / "
+        f"{adir}, Krylov {kry} / {kryr}; LDLᵀ {dX:.3e}, worst K {dK:.3e}")
+    check(adi == adir and len(Ks) == len(Ksr), f"{tag}: ADI iterations differ ({adi}, {adir})")
+    check(abs(kry - kryr) <= KRYLOV_REL_TOL * kryr, f"{tag}: Krylov {kry} vs {kryr}")
+    check(dX <= SHARDED_TOL and dK <= SHARDED_TOL,
+          f"{tag}: LDLᵀ {dX:.3e}, K {dK:.3e} beyond {SHARDED_TOL}")
+
+
+def phase_sharded(E, A, B, C, dev, k1_launches):
+    """Phase 17: 17a on the card, then 17b on the host's CPU.  Adds the
+    launches per path to ``k1_launches``; returns K1's max abs error."""
+    t0 = time.perf_counter()
+    launches, err = phase_sharded_steps_card(E, A, B, C, dev)
+    k1_launches.update(launches)
+    phase_sharded_sweep_cpu()
+    log(f"[sharded] phase 17 took {time.perf_counter() - t0:.1f} s")
+    return err
+
+
 def checked(tag, kern, run):
     """``run()``, a full-size main path that returns its launches, under a
     `ProductLog`; then the kernels against their plain versions at every
@@ -2355,9 +2592,11 @@ def main() -> int:
     ap.add_argument("--parareal-only", action="store_true",
                     help="build the kernels and run only the parareal and sharded-product "
                          "phase 16")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="build the kernels and run only the row-sharded steps, phase 17")
     args = ap.parse_args()
     only = args.newton_only or args.host_only or args.dense_only or args.gmres_only \
-        or args.mixed_only or args.parareal_only
+        or args.mixed_only or args.parareal_only or args.sharded_only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2386,6 +2625,10 @@ def main() -> int:
             k1_launches, k2_launches = {}, {}
             phase_parareal(E, A, B, C, dev, k1_launches, k2_launches)
             log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
+        elif args.sharded_only:
+            k1_launches = {}
+            phase_sharded(E, A, B, C, dev, k1_launches)
+            log(f"[launches] K1 {k1_launches}")
         elif args.gmres_only or args.mixed_only:
             k1_launches, k2_launches = {}, {}
             if args.gmres_only:
@@ -2435,6 +2678,7 @@ def main() -> int:
             errs = phase_parareal(E, A, B, C, dev, k1_launches, k2_launches)
             k1_err = max(k1_err, errs["K1"])
             k2_err = max(k2_err, errs["K2"])
+            k1_err = max(k1_err, phase_sharded(E, A, B, C, dev, k1_launches))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -162,10 +162,11 @@ def dia_shift_ops_from_numpy(data, data_t, prec_inv, offsets, n, nnz, cfg,
                              device=None) -> DiaShiftOps:
     """`DiaShiftOps` from every leaf of the JAX package's ``DiaShiftOps``,
     the pair tables included."""
+    data, data_t = _t(data, device), _t(data_t, device)
     return DiaShiftOps(
-        data=_t(data, device), data_t=_t(data_t, device),
-        prec_inv=_t(prec_inv, device),
-        offsets=tuple(int(o) for o in offsets), n=int(n), nnz_=int(nnz),
+        data=data, data_t=data_t, prec_inv=_t(prec_inv, device),
+        base=DiaOp(data=data[0], data_t=data_t[0], offsets=tuple(int(o) for o in offsets),
+                   n=int(n), nnz_=int(nnz)),
         cfg=krylov_from(cfg),
         et_data=_t(et_data, device), et_data_t=_t(et_data_t, device),
         pair_prec_re=_t(pair_prec_re, device),

@@ -54,8 +54,10 @@ def entry(device=None):
 
 def dryrun_multichip(n_devices: int, device=None) -> dict:
     """The multi-rank dry run over ``n_devices`` ranks on ``device`` (default
-    the card; ``"cpu"`` spawns gloo ranks on the CPU):
-    `parallel.dryrun.dryrun_multichip`."""
+    the card; ``"cpu"`` spawns gloo ranks on the CPU): the sharded products,
+    the row-sharded compiled Ros1 and Newton steps and parareal over the
+    ranks, each held against one process, within `parallel.dryrun.DEADLINE`
+    seconds (`parallel.dryrun.dryrun_multichip`)."""
     from .parallel.dryrun import dryrun_multichip as _dry
 
     return _dry(n_devices, device)

@@ -13,6 +13,10 @@ later):
 The JAX package traces ``k``; here it lives on the host, so column placement
 is plain slicing.  `lr_compress` reads the new rank back from the device
 (one sync per compression).
+
+Under a mesh (`parallel.mesh.use_mesh`) ``L`` is split by rows over its
+ranks and ``D`` is whole on each: `lr_norm` and `lr_dot` all-reduce their
+small Gram products, and `lr_compress` orthogonalizes by a TSQR.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import COMPRESSION_RTOL_FACTOR, resolve_device
+from .parallel.mesh import active_mesh, row_allgather, row_allreduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,14 +191,14 @@ def lr_to_dense(X: LowRank) -> torch.Tensor:
 def lr_norm(X: LowRank) -> torch.Tensor:
     """Frobenius norm without forming the n×n matrix:
     ``‖L D Lᵀ‖²_F = tr((D·LᵀL)²)``.  Padded zero columns contribute nothing."""
-    DM = X.D @ (X.L.T @ X.L)
+    DM = X.D @ row_allreduce(X.L.T @ X.L)
     return torch.sqrt(torch.clamp(torch.trace(DM @ DM), min=0.0))
 
 
 def lr_dot(X: LowRank, Y: LowRank) -> torch.Tensor:
     """Frobenius inner product ``tr(X Y) = tr(D₁ M D₂ Mᵀ)`` with the small
     ``M = L₁ᵀL₂``; padded columns contribute zeros."""
-    M = X.L.T @ Y.L
+    M = row_allreduce(X.L.T @ Y.L)
     return torch.trace(X.D @ M @ Y.D @ M.T)
 
 
@@ -215,6 +220,29 @@ def _robust_eigh(S: torch.Tensor):
     return lam * safe, V
 
 
+def _tsqr(L: torch.Tensor):
+    """``Q, R`` of a reduced QR of ``L`` split by rows over the active mesh
+    (TSQR): each rank's Householder QR ``L_l = Q_l R_l``, an all-gather of
+    the ``R_l`` (``min(nl, r)`` rows each), the QR of their stack
+    ``Q_s R``, run by every rank on the same input, and the rank's rows
+    ``Q_l · Q_s[its block]`` of ``Q``.  ``R`` is the same on every rank.
+    Without a mesh, or with one rank, the plain QR."""
+    mesh = active_mesh()
+    if mesh is None or mesh.size() == 1:
+        return torch.linalg.qr(L)
+    Q_l, R_l = torch.linalg.qr(L)
+    m_l, r = R_l.shape
+    # R_l padded to r rows, its row count in an extra row: one all-gather.
+    buf = R_l.new_zeros((r + 1, r))
+    buf[:m_l] = R_l
+    buf[r, 0] = m_l
+    parts = row_allgather(buf)
+    sizes = [int(m) for m in torch.stack([p[r, 0] for p in parts]).tolist()]
+    Q_s, R = torch.linalg.qr(torch.cat([p[:m] for p, m in zip(parts, sizes)]))
+    off = sum(sizes[:mesh.get_local_rank()])
+    return Q_l @ Q_s[off:off + m_l], R
+
+
 def lr_compress(X: LowRank, r_out: int | None = None,
                 method: str | None = None) -> LowRank:
     """Column compression: orthogonalization + eigendecomposition + cut.
@@ -228,6 +256,11 @@ def lr_compress(X: LowRank, r_out: int | None = None,
     columns are packed to the front, sorted by decreasing magnitude (stable
     sort, as ``jnp.argsort``).  Reads the new rank back to the host: one
     sync per compression.
+
+    Under a mesh, ``L`` split by rows: the QR is a TSQR (`_tsqr`), so every
+    rank computes the same eigendecomposition, cut and rank from the same
+    small matrix, and keeps its rows of the new ``L``.  The ``gram`` route
+    is not ported to a mesh.
     """
     L, D = X.L, X.D
     n, r = L.shape
@@ -236,10 +269,14 @@ def lr_compress(X: LowRank, r_out: int | None = None,
         method = "gram" if L.dtype == torch.float32 else "qr"
     R = None
     if method == "qr":
-        m = min(n, r)  # r > n: full-rank route through the smaller dimension
-        Q, R = torch.linalg.qr(L)  # Q: (n, m), R: (m, r)
+        # Q: (n, m), R: (m, r); m = min(n, r), the full-rank route through
+        # the smaller dimension where r > n.
+        Q, R = _tsqr(L)
+        m = R.shape[0]
         S = R @ D @ R.T
     elif method == "gram":
+        if active_mesh() is not None:
+            raise NotImplementedError("the gram compression over a mesh is not ported")
         m = r
         Q = None
         M = L.T @ L

@@ -27,6 +27,7 @@ from ..lowrank import (
 from ..ops.blocklinear import Backslash, SMWSolver, prepare
 from ..ops.operators import DenseOp, LowRankUpdateOp
 from ..ops.shifted import prepare_shifted
+from ..parallel.mesh import row_allreduce
 from ..utils.callbacks import notify
 from ..utils.timers import timeit
 from .problems import ADI, GALEProblem
@@ -69,8 +70,9 @@ def _step_double(E, solver, mu: complex, W, T, X: LowRank):
 
 
 def _residual_norm(W: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-    """‖W T Wᵀ‖_F through the Gram form ``tr((T·WᵀW)²)`` (no tall QR)."""
-    TM = T @ (W.T @ W)
+    """‖W T Wᵀ‖_F through the Gram form ``tr((T·WᵀW)²)`` (no tall QR); ``WᵀW``
+    all-reduced over the active mesh's ranks."""
+    TM = T @ row_allreduce(W.T @ W)
     return torch.sqrt(torch.clamp(torch.trace(TM @ TM), min=0.0))
 
 

@@ -22,6 +22,19 @@ flow:
 * the ADI convergence test ``res > abstol`` syncs once per ADI iteration,
   and each Krylov iteration syncs once (``ops.blocklinear``).
 
+**Row-sharded operands** (ROADMAP item 10b): `ros1_step_compiled`, the
+Ros1 sweep, `adi_compiled` and `_newton_step_compiled` also run on DIA
+operators split by rows over a 1-D mesh (`parallel.mesh.shard_operator`
+with ``block=PREC_BS``), ``X`` from `parallel.mesh.shard_lowrank`, ``B``
+split by rows and ``C`` by columns.  The sharded operands select the path,
+as the JAX package's ``with mesh:`` does: each function enters its
+operator's mesh (`parallel.mesh.on_operator_mesh`), every contraction over
+n is all-reduced, `lr_compress` is a TSQR, and the shifted operators and
+block inverses are the rank's own rows (`DiaShiftOps.base`).  Every rank
+takes the same host branches, from all-reduced or redundantly computed
+values.  ``K`` comes out split by columns (each rank's columns, a
+deliberate difference from the JAX package's global array).
+
 Supported shift buffers: all-real 1-D ``(ns,)`` and the pair encoding
 ``(ns, 2)`` of ``(Re μ, |Im μ|)`` rows (`pair_encode_shifts`), whose
 conjugate-pair slots run the all-real stacked double step (banded pencils
@@ -50,6 +63,7 @@ from ..ops.dia import DiaOp, DiaPairOp
 from ..ops.operators import (
     DenseOp, LowRankUpdateOp, lin_comb, lr_update, op_astype, scale_op)
 from ..ops.sparse import BellOp
+from ..parallel.mesh import mesh_of, on_operator_mesh, row_allreduce, row_norm, use_mesh
 from ..utils.callbacks import notify
 from .adi import _in_dtype, _residual_norm
 from .problems import DRESolution
@@ -83,14 +97,17 @@ class DiaShiftOps:
     (`ops.dia.DiaPairOp`).  With ``cfg.solve_dtype`` set (e.g. "float32"
     under f64 data), both return a mixed-precision `RefinedKrylovSolver`:
     the Krylov core on the data cast to that dtype, with block inverses
-    built in it, and the refinement's residual on the full-dtype data."""
+    built in it, and the refinement's residual on the full-dtype data.
+
+    ``base`` is the ``Aᵀ`` the slots shift: each slot's operator is it
+    with the slot's data, so from row-sharded operators the slots hold the
+    rank's rows' shifted diagonals (``nl + 2H`` columns) and blocks, and the
+    solvers' operators are shards like it."""
 
     data: torch.Tensor  # (ns, ndiag, N): the shifted operators, pre-transposed
     data_t: torch.Tensor  # (ns, ndiag, N)
     prec_inv: torch.Tensor  # (ns, nb, bs, bs) block-Jacobi inverses, solve dtype
-    offsets: tuple
-    n: int
-    nnz_: int
+    base: DiaOp  # Aᵀ: offsets, sizes (and rows, mesh) of every slot's operator
     cfg: Krylov
     # Pair-encoded (all-real double step) extras; None without pair slots.
     et_data: torch.Tensor | None = None  # (ndiag, N): Eᵀ
@@ -99,10 +116,16 @@ class DiaShiftOps:
     pair_prec_im: torch.Tensor | None = None
     pair_index: tuple | None = None  # (ns,) slot → pair row (0 if real)
     pair_cfg: Krylov | None = None  # Krylov for the stacked-real pair system
+    # The JAX package's leaves of the same names.
+    offsets = property(lambda self: self.base.offsets)
+    n = property(lambda self: self.base.n)
+    nnz_ = property(lambda self: self.base.nnz_)
+
+    def _op(self, data, data_t) -> DiaOp:
+        return dataclasses.replace(self.base, data=data, data_t=data_t, symmetric=None)
 
     def _dia(self, idx: int) -> DiaOp:
-        return DiaOp(data=self.data[idx], data_t=self.data_t[idx],
-                     offsets=self.offsets, n=self.n, nnz_=self.nnz_)
+        return self._op(self.data[idx], self.data_t[idx])
 
     def _refined(self, op, lo_op, prec, cfg: Krylov):
         """`KrylovSolver` on ``op``, or, when ``cfg.solve_dtype`` differs
@@ -128,8 +151,7 @@ class DiaShiftOps:
         ``F = data[idx]`` (already shifted by ``a``)."""
         if self.et_data is None:
             raise ValueError("shift buffer was not pair-encoded")
-        Et = DiaOp(data=self.et_data, data_t=self.et_data_t,
-                   offsets=self.offsets, n=self.n, nnz_=self.nnz_)
+        Et = self._op(self.et_data, self.et_data_t)
         op = DiaPairOp(F=self._dia(idx), Et=Et, b=float(b))
         pi = self.pair_index[idx]
         prec = PairBlockPrec(re=self.pair_prec_re[pi], im=self.pair_prec_im[pi])
@@ -200,7 +222,11 @@ def build_dia_shift_ops(E: DiaOp, A0: DiaOp, shifts,
 
     ``block_cache``: optional dict reused across calls with the same pencil;
     it caches the pencil members' diagonal blocks so a rebuild costs one
-    batched add + one batched inverse."""
+    batched add + one batched inverse.
+
+    ``E``/``A0`` may be row shards (`parallel.sharded_ops.ShardedDiaOp`)
+    split in ``PREC_BS``-row blocks: then every table holds the rank's
+    rows."""
     shifts = np.asarray(shifts)
     if np.iscomplexobj(shifts):
         raise ValueError("complex 1-D shift buffers are not supported; "
@@ -246,8 +272,7 @@ def build_dia_shift_ops(E: DiaOp, A0: DiaOp, shifts,
                        pair_prec_re=P, pair_prec_im=Qm,
                        pair_index=tuple(int(i) for i in pidx),
                        pair_cfg=_pair_krylov(krylov_cfg))
-    return DiaShiftOps(data=data, data_t=data_t, prec_inv=inv,
-                       offsets=At.offsets, n=At.n, nnz_=At.nnz_,
+    return DiaShiftOps(data=data, data_t=data_t, prec_inv=inv, base=At,
                        cfg=krylov_cfg, **pair_kw)
 
 
@@ -377,7 +402,7 @@ def _wrap_smw(core, A, dtype):
     Vt = A.U.T.to(dtype)
     AinvU = core.solve(U)
     m = U.shape[1]
-    S = A.alpha * torch.eye(m, dtype=dtype, device=U.device) + Vt @ AinvU
+    S = A.alpha * torch.eye(m, dtype=dtype, device=U.device) + row_allreduce(Vt @ AinvU)
     return SMWSolver(base=core, AinvU=AinvU, V=Vt, schur=_small_dense_solver(S))
 
 
@@ -393,14 +418,16 @@ def _wrap_smw_pair(core, A, dtype):
     m = U.shape[1]
     AinvU_st = core.solve(torch.cat([U, torch.zeros_like(U)], dim=1))
     P, Q = AinvU_st[:, :m], AinvU_st[:, m:]
-    Sr = A.alpha * torch.eye(m, dtype=dtype, device=U.device) + Vt @ P
-    Si = Vt @ Q
+    VP = row_allreduce(torch.cat([Vt @ P, Vt @ Q]))
+    Sr = A.alpha * torch.eye(m, dtype=dtype, device=U.device) + VP[:m]
+    Si = VP[m:]
     S2 = torch.cat([torch.cat([Sr, -Si], dim=1),
                     torch.cat([Si, Sr], dim=1)], dim=0)
     return PairSMWSolver(base=core, AinvU_re=P, AinvU_im=Q, V=Vt,
                          schur=_small_dense_solver(S2))
 
 
+@on_operator_mesh
 def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
                  cfg: CompiledConfig, shift_lus):
     """Low-rank ADI over a cyclic shift buffer.
@@ -507,6 +534,7 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
     return X, W, i, res
 
 
+@on_operator_mesh
 def ros1_initial_residual(E, A, B, C, X: LowRank, tau: float,
                           cfg: CompiledConfig):
     """Closed-loop coefficient and warm-start residual of one Ros1 step.
@@ -518,7 +546,7 @@ def ros1_initial_residual(E, A, B, C, X: LowRank, tau: float,
     """
     q = C.shape[0]
     L, D = X.L, X.D
-    BtLD = (B.T @ L) @ D
+    BtLD = row_allreduce(B.T @ L) @ D
     K = BtLD @ E.tmm(L).T
     F_op = lr_update(lin_comb(A, -1.0 / (2.0 * tau), E), -1.0, B, K)
 
@@ -531,6 +559,7 @@ def ros1_initial_residual(E, A, B, C, X: LowRank, tau: float,
     return F_op, residual_gale_lowrank(E, F_op, R, X, r_out=cfg.r_res)
 
 
+@on_operator_mesh
 def ros1_step_compiled(E, A, B, C, X: LowRank, tau: float, shifts,
                        abstol: float, cfg: CompiledConfig,
                        shift_lus):
@@ -732,41 +761,43 @@ def ros2_step_compiled(E, A, B, C, X: LowRank, tau: float, shifts,
 
 
 def _abstol_default(prob) -> float:
-    """``n · eps · ‖C‖_F`` in the problem's dtype."""
-    return float(prob.n * torch.finfo(prob.B.dtype).eps
-                 * torch.linalg.norm(prob.C))
+    """``n · eps · ‖C‖_F`` in the problem's dtype (the global ``n`` and
+    ``‖C‖_F`` over the active mesh)."""
+    return float(prob.n * torch.finfo(prob.B.dtype).eps * row_norm(prob.C))
 
 
 def _sweep(step, prob, tstops, F_core, shifts, cfg, capacity, abstol,
            save_state, krylov_cfg, observer):
-    """The fixed-step sweep shared by the Ros1 and Ros2 solvers."""
-    E, A, B, C = prob.E, prob.A, prob.B, prob.C
-    X = lr_with_capacity(lr_compress(prob.X0, r_out=prob.X0.r), capacity)
-    tau = float(tstops[0] - tstops[1])
-    shifts = encode_shifts_for_operator(shifts, F_core)
-    check_shift_pairing(shifts)
-    lus = build_step_shift_solvers(E, F_core, shifts, krylov_cfg)
-    if abstol is None:
-        abstol = _abstol_default(prob)
-    Xs, Ks = [X], [feedback_K(E, B, X)]
-    if observer is not None:
-        observer(0, X, Ks[0], 0, None)
-    iters_total, res_max = 0, 0.0
-    for i in range(1, len(tstops)):
-        X, K, iters, res = step(E, A, B, C, X, tau, shifts, abstol, cfg, lus)
-        iters_total += iters
-        res_max = max(res_max, float(res))
-        Ks.append(K)
-        if save_state:
-            Xs.append(X)
+    """The fixed-step sweep shared by the Ros1 and Ros2 solvers, under the
+    mesh of the problem's operators."""
+    with use_mesh(mesh_of(prob.E)):
+        E, A, B, C = prob.E, prob.A, prob.B, prob.C
+        X = lr_with_capacity(lr_compress(prob.X0, r_out=prob.X0.r), capacity)
+        tau = float(tstops[0] - tstops[1])
+        shifts = encode_shifts_for_operator(shifts, F_core)
+        check_shift_pairing(shifts)
+        lus = build_step_shift_solvers(E, F_core, shifts, krylov_cfg)
+        if abstol is None:
+            abstol = _abstol_default(prob)
+        Xs, Ks = [X], [feedback_K(E, B, X)]
         if observer is not None:
-            observer(i, X, K, iters, res)
-    if not save_state:
-        Xs.append(X)
-    sol = DRESolution(Xs, Ks, tstops)
-    sol.adi_iters = iters_total
-    sol.adi_res_max = res_max  # worst accepted GALE residual
-    return sol
+            observer(0, X, Ks[0], 0, None)
+        iters_total, res_max = 0, 0.0
+        for i in range(1, len(tstops)):
+            X, K, iters, res = step(E, A, B, C, X, tau, shifts, abstol, cfg, lus)
+            iters_total += iters
+            res_max = max(res_max, float(res))
+            Ks.append(K)
+            if save_state:
+                Xs.append(X)
+            if observer is not None:
+                observer(i, X, K, iters, res)
+        if not save_state:
+            Xs.append(X)
+        sol = DRESolution(Xs, Ks, tstops)
+        sol.adi_iters = iters_total
+        sol.adi_res_max = res_max  # worst accepted GALE residual
+        return sol
 
 
 def solve_gdre_ros1_compiled(prob, *, dt: float, shifts, cfg: CompiledConfig,
@@ -782,7 +813,13 @@ def solve_gdre_ros1_compiled(prob, *, dt: float, shifts, cfg: CompiledConfig,
     ``observer(i, X, K, iters, res)``, if given, is called at every stop:
     at ``i = 0`` once the shifted cores are built (``iters = 0``,
     ``res = None``), then after step ``i``.
-    The solution carries ``adi_iters`` (total) and ``adi_res_max``."""
+    The solution carries ``adi_iters`` (total) and ``adi_res_max``.
+
+    On a row-sharded problem (DIA shards split in ``PREC_BS``-row blocks,
+    ``X0`` and ``B`` split by rows, ``C`` by columns) every rank calls this
+    with its shards; each ``K`` of the solution is then the rank's column
+    shard (gather ``Kᵀ`` with `parallel.mesh.unshard_tall`), each ``X`` its
+    row shard."""
     del fused
     tstops = time_grid(prob.tspan, dt)
     tau = float(tstops[0] - tstops[1])
@@ -872,6 +909,7 @@ def _linesearch_combine(X_prev: LowRank, X_tilde: LowRank, lam: float,
     return lr_compress(X, r_out=capacity)
 
 
+@on_operator_mesh
 def _newton_step_compiled(E, A, B, X: LowRank, K, res: LowRank, shifts,
                           inner_abstol: float, cfg: CompiledConfig, shift_lus):
     """One Kleinman–Newton step: the closed-loop GALE with

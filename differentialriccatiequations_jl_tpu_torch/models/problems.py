@@ -64,7 +64,8 @@ class GDREProblem:
 
     @property
     def n(self) -> int:
-        return self.B.shape[0]
+        """The global size, also where the operands are row shards."""
+        return self.E.shape[0]
 
     @property
     def is_lowrank(self) -> bool:
@@ -85,11 +86,14 @@ class GAREProblem:
 
     @property
     def n(self) -> int:
-        return self.G.n
+        """The global size, also where the operands are row shards."""
+        return self.E.shape[0]
 
 
 class DRESolution:
-    """GDRE trajectory: states `X`, feedbacks `K = BᵀXE`, times `t`."""
+    """GDRE trajectory: states `X`, feedbacks `K = BᵀXE`, times `t`.  From a
+    row-sharded sweep each rank holds its rows of every ``X`` and its
+    columns of every ``K``."""
 
     def __init__(self, X, K, t):
         self.X = X

@@ -3,7 +3,9 @@ dispatch (port of the JAX package's ``models/residuals.py``).
 
 The low-rank residual never forms the n×n matrix: it assembles a factor
 ``R = [G  EᵀL  AᵀL]`` with a small block middle matrix and compresses
-(Benner–Li–Penzl 2008).  The dense residuals form it.
+(Benner–Li–Penzl 2008).  The dense residuals form it.  On row-sharded
+operators the low-rank residuals run under their mesh (``R`` split by rows,
+the compression a TSQR).
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ import torch
 
 from ..lowrank import LowRank, lr_compress
 from ..ops.operators import as_operator
+from ..parallel.mesh import on_operator_mesh, row_allreduce
 from .lyapunov_dense import _dense
 
 
+@on_operator_mesh
 def residual_gale_lowrank(E, A, C: LowRank, X: LowRank,
                           r_out: int | None = None) -> LowRank:
     """GALE residual ``C + AᵀXE + EᵀXA`` as a compressed `LowRank`.
@@ -38,6 +42,7 @@ def residual_gale_lowrank(E, A, C: LowRank, X: LowRank,
     return lr_compress(res, r_out=r_out)
 
 
+@on_operator_mesh
 def residual_gare_lowrank(E, A, G: LowRank, Q: LowRank, X: LowRank,
                           r_out: int | None = None) -> LowRank:
     """GARE residual ``Q + AᵀXE + EᵀXA − EᵀXGXE`` as a compressed `LowRank`.
@@ -52,7 +57,7 @@ def residual_gare_lowrank(E, A, G: LowRank, Q: LowRank, X: LowRank,
     L, D = X.L, X.D
     h = Ct.shape[1]
     r = L.shape[1]
-    BtLD = (B.T @ L) @ D
+    BtLD = row_allreduce(B.T @ L) @ D
     R = torch.cat([Ct, A.tmm(L), E.tmm(L)], dim=1)
     dim = h + 2 * r
     T = R.new_zeros((dim, dim))

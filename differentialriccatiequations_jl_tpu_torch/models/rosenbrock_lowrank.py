@@ -20,6 +20,7 @@ import torch
 from ..lowrank import LowRank, lr_add, lr_compress, lr_scale, lr_slice_active
 from ..ops.operators import lin_comb, lr_update, scale_op
 from ..ops.shifted import ShiftedSolveCache
+from ..parallel.mesh import on_operator_mesh, row_allreduce
 from ..utils.callbacks import notify
 from ..utils.timers import timeit
 from .adi import solve_gale_adi
@@ -35,9 +36,12 @@ def time_grid(tspan, dt: float) -> np.ndarray:
     return t0 + dt * np.arange(nsteps + 1)
 
 
+@on_operator_mesh
 def feedback_K(E, B: torch.Tensor, X: LowRank) -> torch.Tensor:
-    """``K = Bᵀ X E`` in factored form ``(BᵀLD)(LᵀE)``."""
-    BtLD = (B.T @ X.L) @ X.D
+    """``K = Bᵀ X E`` in factored form ``(BᵀLD)(LᵀE)``.  With a row-sharded
+    ``E`` (``B`` and ``L`` split by rows) ``BᵀL`` is all-reduced and ``K``
+    comes out split by columns: each rank's columns."""
+    BtLD = row_allreduce(B.T @ X.L) @ X.D
     return BtLD @ E.tmm(X.L).T
 
 

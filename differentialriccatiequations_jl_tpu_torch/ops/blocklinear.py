@@ -30,6 +30,13 @@ Each iteration's convergence test reads one boolean back to the host
 (one sync per iteration; for GMRES each restart test and each Arnoldi
 step's breakdown test); `krylov_iterations` counts them and
 `krylov_solves` the solves.
+
+Over a row-sharded operator (`parallel.sharded_ops.ShardedDiaOp`, under
+its mesh: `parallel.mesh.use_mesh`) each rank holds its rows of every
+block, and every inner product, the right-hand side's norm and the SMW's
+small systems are all-reduced over the ranks (`row_allreduce`), so every
+rank reads the same values and takes the same branches.  CG and BiCGStab
+run so; GMRES raises.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import active_mesh, row_allreduce, row_norm
 from ..utils.timers import timeit
 from .operators import DenseOp, LowRankUpdateOp, as_operator
 
@@ -129,7 +137,7 @@ class SMWSolver:
     def solve(self, B: torch.Tensor) -> torch.Tensor:
         with timeit("smw.solve"):
             AinvB = self.base.solve(B)
-            t = self.schur.solve(self.V @ AinvB)
+            t = self.schur.solve(row_allreduce(self.V @ AinvB))
             return AinvB - self.AinvU @ t
 
 
@@ -182,8 +190,8 @@ class PairBlockPrec:
 
 def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Inner product ``⟨x, y⟩`` (``x`` conjugated) of two blocks taken as
-    one vector each."""
-    return torch.vdot(x.reshape(-1), y.reshape(-1))
+    one vector each (over the ranks of the active mesh)."""
+    return row_allreduce(torch.vdot(x.reshape(-1), y.reshape(-1)))
 
 
 def _vdot_real(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -349,8 +357,10 @@ class KrylovSolver:
         global krylov_solves
         krylov_solves += 1
         cfg = self.cfg
+        if cfg.method == "gmres" and active_mesh() is not None:
+            raise NotImplementedError("GMRES over row-sharded operators is not ported")
         # Normalize the RHS (scale invariance of the stopping rule).
-        nrm = torch.linalg.norm(B)
+        nrm = row_norm(B)
         scale = torch.where(nrm > 0, nrm, torch.ones_like(nrm)).to(B.dtype)
         B = B / scale
         # Lane-major: the whole iteration runs in (q, N) layout; the
@@ -405,7 +415,7 @@ class PairSMWSolver:
         q = B.shape[1] // 2
         AinvB = self.base.solve(B)
         Rr, Ri = AinvB[:, :q], AinvB[:, q:]
-        t = self.schur.solve(torch.cat([self.V @ Rr, self.V @ Ri], dim=0))
+        t = self.schur.solve(row_allreduce(torch.cat([self.V @ Rr, self.V @ Ri], dim=0)))
         m = self.V.shape[0]
         tr, ti = t[:m], t[m:]
         return torch.cat([

@@ -116,12 +116,9 @@ class DiaOp(complex_route.SplitStorage):
 
     def adjoint(self) -> "DiaOp":
         # Reverse so the (negated) offsets stay ascending.
-        return DiaOp(
-            data=torch.flip(self.data_t, [0]),
-            data_t=torch.flip(self.data, [0]),
-            offsets=tuple(-o for o in reversed(self.offsets)),
-            n=self.n, nnz_=self.nnz_, symmetric=self.symmetric,
-        )
+        return dataclasses.replace(
+            self, data=torch.flip(self.data_t, [0]), data_t=torch.flip(self.data, [0]),
+            offsets=tuple(-o for o in reversed(self.offsets)))
 
     def to_scipy(self):
         """scipy.sparse CSR copy (host-side helpers only).  scipy's DIA
@@ -239,7 +236,7 @@ def is_banded(M, max_diags: int = 64) -> bool:
 
 
 def _same_pattern(a: DiaOp, b: DiaOp) -> bool:
-    return a.offsets == b.offsets and a.n == b.n and a.N == b.N
+    return type(a) is type(b) and a.offsets == b.offsets and a.n == b.n and a.N == b.N
 
 
 def _combined_symmetry(a, b):
@@ -251,18 +248,17 @@ def _combined_symmetry(a, b):
 
 
 def dia_lin_comb(A: DiaOp, c, E: DiaOp) -> DiaOp:
-    """``A + c·E`` for diagonal-set-sharing operators (see `dia_pencil`)."""
+    """``A + c·E`` for diagonal-set-sharing operators (see `dia_pencil`),
+    row shards of them (`parallel.sharded_ops.ShardedDiaOp`) included."""
     if not _same_pattern(A, E):
         raise ValueError("dia_lin_comb requires operators sharing a diagonal "
                          "set (build them with dia_pencil)")
-    return DiaOp(data=A.data + c * E.data, data_t=A.data_t + c * E.data_t,
-                 offsets=A.offsets, n=A.n, nnz_=A.nnz_,
-                 symmetric=_combined_symmetry(A.symmetric, E.symmetric))
+    return dataclasses.replace(A, data=A.data + c * E.data, data_t=A.data_t + c * E.data_t,
+                               symmetric=_combined_symmetry(A.symmetric, E.symmetric))
 
 
 def dia_scale(A: DiaOp, c) -> DiaOp:
-    return DiaOp(data=c * A.data, data_t=c * A.data_t, offsets=A.offsets,
-                 n=A.n, nnz_=A.nnz_, symmetric=A.symmetric)
+    return dataclasses.replace(A, data=c * A.data, data_t=c * A.data_t)
 
 
 def shifted_dia(E: DiaOp, A: DiaOp, mu) -> DiaOp:

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from ..parallel.mesh import row_allreduce
 from .dia import DiaOp, dia_lin_comb, dia_scale
 from .sparse import BellOp, bell_lin_comb, bell_scale
 
@@ -60,7 +61,9 @@ class DenseOp:
 class LowRankUpdateOp:
     """Lazy ``A + α⁻¹ U V`` with low-rank ``U (n, m)``, ``V (m, n)``: kept
     lazy so Sherman–Morrison–Woodbury solves reuse the base operator's
-    solver where only the feedback term ``B K`` changes."""
+    solver where only the feedback term ``B K`` changes.  Over a row-sharded
+    base, ``U`` is split by rows and ``V`` by columns, and the products'
+    contractions over n are all-reduced (`parallel.mesh.row_allreduce`)."""
 
     A: object  # base operator (DenseOp / DiaOp / BellOp)
     alpha: float | torch.Tensor  # scalar
@@ -80,10 +83,10 @@ class LowRankUpdateOp:
         return self.A.device
 
     def mm(self, X: torch.Tensor) -> torch.Tensor:
-        return self.A.mm(X) + (1.0 / self.alpha) * (self.U @ (self.V @ X))
+        return self.A.mm(X) + (1.0 / self.alpha) * (self.U @ row_allreduce(self.V @ X))
 
     def tmm(self, X: torch.Tensor) -> torch.Tensor:
-        return self.A.tmm(X) + (1.0 / self.alpha) * (self.V.T @ (self.U.T @ X))
+        return self.A.tmm(X) + (1.0 / self.alpha) * (self.V.T @ row_allreduce(self.U.T @ X))
 
     def to_dense(self) -> torch.Tensor:
         return self.A.to_dense() + (1.0 / self.alpha) * (self.U @ self.V)
@@ -128,7 +131,8 @@ def lin_comb(A, c, E):
     """Operator for ``A + c·E`` (e.g. the Rosenbrock coefficient
     ``A − E/(2τ)``).  Low-rank updates distribute over the base; dense
     bases combine eagerly; banded bases combine on their shared diagonals,
-    block-ELL bases on their shared block pattern."""
+    block-ELL bases on their shared block pattern, row shards of banded
+    bases on their rows' diagonals."""
     A = as_operator(A)
     E = as_operator(E)
     if isinstance(A, LowRankUpdateOp):

@@ -1,39 +1,55 @@
-"""Multi-rank dry run: the row-sharded products and parareal over ranks.
+"""Multi-rank dry run: the row-sharded products, the row-sharded compiled
+Ros1 and Newton steps, and parareal over ranks.
 
 Port of the JAX package's ``parallel/dryrun.py``.  `dryrun_multichip`
-spawns ``n_devices`` ranks (one process each, a `torch.distributed` group
-over ``tcp://localhost``), builds a 1-D mesh (`mesh.make_mesh`) and, on tiny
-shapes:
+spawns ``n_devices`` ranks (`run_ranks`: one process each, a
+`torch.distributed` group over ``tcp://localhost`` with a timeout, the
+whole spawn under a deadline), builds a 1-D mesh (`mesh.make_mesh`) and, on
+tiny shapes:
 
 * holds the row-sharded DIA product (`sharded_ops.ShardedDiaOp`, ``mm`` and
   ``tmm``, halo exchange + K1) and the row-sharded block-ELL product
   (`sharded_ops.ShardedBellSpmm`, halo exchange + K2) against the unsharded
   ones;
+* runs the JAX dry run's compiled Ros1 step (the pair-encoded buffer
+  ``[−0.5, −1 ± 0.5i, −2]``) and its compiled Kleinman–Newton step (real
+  shifts ``[−0.5, −1.5, −3]``) on row-sharded operands (`ros1_step_sharded`,
+  `newton_step_sharded`) and holds each against the same step in one
+  process: equal ADI iterations, Krylov iterations within 2 %, ``X`` and
+  ``K`` within `STEP_TOL`;
 * runs one parareal iteration with ``slabs = n_devices``, the slabs' fine
   sweeps split over the ranks (`models.parareal.solve_gdre_parareal` with
   ``mesh=``), and holds it against the same solve in one process.
 
-Not run yet: the row-sharded compiled Ros1 and Newton steps of the JAX
-package's dry run (its ``parallel/dryrun.py:45-94``), whose tall-skinny
-contractions, Krylov dots and compressions would all become cross-rank
-reductions.
+The steps run at n = 256·W, where the JAX dry run takes 64·W: the compiled
+steps split whole 128-row blocks over the ranks (so that each rank's
+block-Jacobi blocks are the global ones), and 64·W rows cannot be split so.
+`ros1_sweep` is the JAX package's sharded-sweep test configuration
+(``tests/test_sharded_gdre.py:140-153``), for the tests and the smoke run.
 """
 
 from __future__ import annotations
 
 import socket
+import time
 
 import numpy as np
 import torch
 
-#: What the dry run leaves out, printed with its result.
-NOT_RUN = ("the row-sharded compiled Ros1 and Newton steps (the JAX package's "
-           "parallel/dryrun.py:45-94) are not ported yet")
 #: Sharded vs unsharded products: f64 sums in the same order but for the
 #: kernels' FMA contraction.
 PRODUCT_TOL = 1e-12
 #: Parareal over ranks vs one process: K within this, relative.
 PARAREAL_TOL = 1e-10
+#: Row-sharded steps vs one process: X and K within this, relative (the
+#: JAX package's test, ``tests/test_sharded_gdre.py:170-175``).
+STEP_TOL = 1e-10
+#: Krylov iterations, sharded vs one process: the sums of the dots are
+#: taken in another order, and BiCGStab may cross its bound an iteration
+#: earlier or later.
+KRYLOV_TOL = 0.02
+#: Seconds a spawn may take before its ranks are stopped.
+DEADLINE = 300.0
 
 
 def free_port() -> int:
@@ -47,6 +63,78 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)), 1e-300))
 
 
+def _rank_main(rank, fn, world, port, device, args, out):
+    """One spawned rank: a group with `mesh.GROUP_TIMEOUT`, ``fn(dev,
+    *args)``, rank 0's result into ``out``."""
+    import torch.distributed as dist
+
+    from .mesh import GROUP_TIMEOUT
+
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank, timeout=GROUP_TIMEOUT)
+    try:
+        result = fn(dev, *args)
+        if rank == 0:
+            out.put(("result", result))
+    finally:
+        dist.destroy_process_group()
+
+
+def _stop(ranks) -> None:
+    for p in ranks.processes:
+        if p.is_alive():
+            p.terminate()
+    for p in ranks.processes:
+        p.join(5)
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+
+
+def run_ranks(fn, world: int, device=None, args=(), deadline: float = DEADLINE):
+    """Spawn ``world`` ranks on ``device`` (default the card: one GPU per
+    rank, NCCL; ``"cpu"``: gloo), each running ``fn(dev, *args)`` inside an
+    initialised process group (``fn`` makes its meshes with
+    `mesh.make_mesh`); return rank 0's result.  ``fn`` must be importable
+    (a module-level function), and its result is pickled: return host values
+    (numbers, numpy arrays).  Raises if a rank fails, and `TimeoutError`
+    once ``deadline`` seconds have passed, after stopping every rank."""
+    import torch.multiprocessing as mp
+
+    from ..config import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < world:
+        raise RuntimeError(f"{world} ranks need {world} GPUs, found "
+                           f"{torch.cuda.device_count()}")
+    out = mp.get_context("spawn").SimpleQueue()
+    t_end = time.monotonic() + deadline
+    ranks = mp.start_processes(_rank_main, args=(fn, world, free_port(), dev.type, args, out),
+                               nprocs=world, join=False, start_method="spawn")
+    got = None
+    try:
+        # Drain the queue while waiting: a writer blocks on a full pipe.
+        # join raises as soon as a rank fails.
+        while not ranks.join(timeout=1):
+            if got is None and not out.empty():
+                got = out.get()
+            if time.monotonic() > t_end:
+                raise TimeoutError(f"{world} ranks still running after {deadline:.0f} s")
+    finally:
+        _stop(ranks)
+    if got is None and not out.empty():
+        got = out.get()
+    if got is None:
+        raise RuntimeError("rank 0 returned no result")
+    return got[1]
+
+
 def _check_products(mesh, dev, n, bs):
     """Sharded DIA (mm, tmm) and block-ELL (mm, tmm) products on the Rail
     surrogate against the unsharded ones; returns the worst relative
@@ -54,7 +142,7 @@ def _check_products(mesh, dev, n, bs):
     from ..ops.dia import dia_pencil
     from ..ops.sparse import bell_pencil
     from ..utils.testmat import rail_surrogate
-    from .mesh import shard_operator, shard_tall, unshard_tall
+    from .mesh import shard_operator, shard_tall, unshard_tall, use_mesh
 
     E, A, _, _ = rail_surrogate(n)
     X = torch.as_tensor(np.random.default_rng(3).standard_normal((n, 5)), device=dev)
@@ -65,12 +153,180 @@ def _check_products(mesh, dev, n, bs):
         sh = shard_operator(mesh, op)
         X_l = shard_tall(mesh, X, block)
         for name, prod, ref in (("mm", sh.mm, op.mm), ("tmm", sh.tmm, op.tmm)):
-            Y = unshard_tall(mesh, prod(X_l), n, block)
+            with use_mesh(mesh):
+                Y_l = prod(X_l)
+            Y = unshard_tall(mesh, Y_l, n, block)
             rel = _rel(Y, ref(X))
             if not rel <= PRODUCT_TOL:
                 raise AssertionError(f"sharded {fmt} {name}: rel {rel:.3e} > {PRODUCT_TOL}")
             worst = max(worst, rel)
     return worst
+
+
+# --- the row-sharded compiled steps -------------------------------------------
+
+
+def shard_pencil(mesh, E_op, A_op, B, C):
+    """``E``, ``A`` split in ``PREC_BS``-row blocks, ``B`` split by rows and
+    ``C`` by columns."""
+    from ..models.compiled import PREC_BS
+    from .mesh import shard_operator, shard_tall
+
+    return (shard_operator(mesh, E_op, block=PREC_BS),
+            shard_operator(mesh, A_op, block=PREC_BS),
+            shard_tall(mesh, B, PREC_BS), shard_tall(mesh, C.T, PREC_BS).T)
+
+
+def gather_state(mesh, X, K, n):
+    """The whole ``X`` (its ``L`` gathered) and ``K`` (its columns
+    gathered) of a row-sharded step; as they are without a mesh."""
+    from ..lowrank import LowRank
+    from ..models.compiled import PREC_BS
+    from .mesh import unshard_tall
+
+    if mesh is None:
+        return X, K
+    return (LowRank(L=unshard_tall(mesh, X.L, n, PREC_BS), D=X.D, k=X.k),
+            unshard_tall(mesh, K.T.contiguous(), n, PREC_BS).T)
+
+
+def _counted(run):
+    """``run()`` and the Krylov iterations it took."""
+    from ..ops import blocklinear
+
+    k0 = blocklinear.krylov_iterations
+    out = run()
+    return out, blocklinear.krylov_iterations - k0
+
+
+def _dryrun_pencil(dev, n):
+    """The JAX dry run's pencil and start: the Rail surrogate, X0 =
+    lowrank(E⁻¹Cᵀ, 0.01·I) at capacity 64, f64."""
+    import scipy.sparse.linalg as spla
+
+    from ..lowrank import lowrank, lr_with_capacity
+    from ..ops.dia import dia_pencil
+    from ..utils.testmat import rail_surrogate
+
+    E, A, B, C = rail_surrogate(n)
+    E_op, A_op = dia_pencil(E, A, device=dev)
+    L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
+    X0 = lr_with_capacity(lowrank(torch.as_tensor(L0, device=dev),
+                                  0.01 * torch.eye(C.shape[0], dtype=torch.float64,
+                                                   device=dev)), 64)
+    return E_op, A_op, torch.as_tensor(B, device=dev), torch.as_tensor(C, device=dev), X0
+
+
+def ros1_step_sharded(dev, n, mesh=None):
+    """The JAX dry run's compiled Ros1 step (its ``parallel/dryrun.py:45-80``:
+    τ = 20, the pair-encoded buffer ``[−0.5, −1 ± 0.5i, −2]``,
+    `CompiledConfig(8, 4, 16)`, abstol 1e-8) at ``n``, on operands split
+    over ``mesh`` (in one process without one).  Returns (X, K gathered,
+    ADI iterations, residual, Krylov iterations)."""
+    from ..entry import SHIFTS
+    from ..models.compiled import (
+        PREC_BS, CompiledConfig, build_dia_shift_ops, pair_encode_shifts, ros1_step_compiled)
+    from ..ops.operators import lin_comb
+    from .mesh import shard_lowrank
+
+    tau, cfg = 20.0, CompiledConfig(maxiters=8, compression_interval=4, r_res=16)
+    E, A, B, C, X0 = _dryrun_pencil(dev, n)
+    if mesh is not None:
+        E, A, B, C = shard_pencil(mesh, E, A, B, C)
+        X0 = shard_lowrank(mesh, X0, PREC_BS)
+    shifts = pair_encode_shifts(SHIFTS)
+    lus = build_dia_shift_ops(E, lin_comb(A, -1.0 / (2.0 * tau), E), shifts)
+    (X, K, iters, res), kry = _counted(lambda: ros1_step_compiled(
+        E, A, B, C, X0, tau, shifts, 1e-8, cfg, lus))
+    return (*gather_state(mesh, X, K, n), iters, float(res), kry)
+
+
+def newton_step_sharded(dev, n, mesh=None):
+    """The JAX dry run's compiled Kleinman–Newton step (its
+    ``parallel/dryrun.py:82-100``: shifts ``[−0.5, −1.5, −3]``, G =
+    lowrank(B) and Q = lowrank(Cᵀ) at capacity 16, the GARE residual at X0
+    as the entry residual, inner abstol 1e-3) at ``n``, on operands split
+    over ``mesh`` (in one process without one).  Returns (X, K gathered,
+    ADI iterations, ADI residual, Krylov iterations); ``K`` is the feedback
+    at the new X."""
+    from ..lowrank import lowrank, lr_with_capacity
+    from ..models.compiled import (
+        PREC_BS, CompiledConfig, _newton_step_compiled, build_dia_shift_ops)
+    from ..models.residuals import residual_gare_lowrank
+    from ..models.rosenbrock_lowrank import feedback_K
+    from .mesh import shard_lowrank
+
+    cfg = CompiledConfig(maxiters=8, compression_interval=4, r_res=16)
+    E, A, B, C, X0 = _dryrun_pencil(dev, n)
+    G = lr_with_capacity(lowrank(B), 16)
+    Q = lr_with_capacity(lowrank(C.T.contiguous()), 16)
+    if mesh is not None:
+        E, A, B, C = shard_pencil(mesh, E, A, B, C)
+        X0, G, Q = (shard_lowrank(mesh, Y, PREC_BS) for Y in (X0, G, Q))
+    shifts = np.asarray([-0.5, -1.5, -3.0])
+    lus = build_dia_shift_ops(E, A, shifts)
+    K0 = feedback_K(E, B, X0)
+    res = residual_gare_lowrank(E, A, G, Q, X0, r_out=cfg.r_res)
+    (X, iters, ares), kry = _counted(lambda: _newton_step_compiled(
+        E, A, B, X0, K0, res, shifts, 1e-3, cfg, lus))
+    return (*gather_state(mesh, X, feedback_K(E, B, X), n), iters, float(ares), kry)
+
+
+def ros1_sweep(dev, n, mesh=None):
+    """The JAX package's sharded-sweep test (``tests/test_sharded_gdre.py:
+    140-153``) at ``n``: the Rail surrogate, 8 real Penzl shifts
+    ``heuristic_shifts_host(E, A, 8, 10, 10)``, X0 = lowrank(E⁻¹Cᵀ, 0.01·I)
+    at capacity 96, `CompiledConfig(60, 10, 48)`, tspan (4500, 4440),
+    dt = −20, abstol 1e-12, on operands split over ``mesh`` (in one process
+    without one).  Returns (the final X and every K, gathered; ADI and
+    Krylov iterations)."""
+    import scipy.sparse.linalg as spla
+
+    from ..lowrank import lowrank, lr_with_capacity
+    from ..models.compiled import PREC_BS, CompiledConfig, solve_gdre_ros1_compiled
+    from ..models.problems import GDREProblem
+    from ..models.shifts import heuristic_shifts_host
+    from ..ops.dia import dia_pencil
+    from ..utils.testmat import rail_surrogate
+    from .mesh import shard_lowrank
+
+    E, A, B, C = rail_surrogate(n)
+    shifts = np.asarray([s.real for s in heuristic_shifts_host(E, A, 8, 10, 10)])
+    L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
+    X0 = lr_with_capacity(lowrank(torch.as_tensor(L0, device=dev),
+                                  0.01 * torch.eye(C.shape[0], dtype=torch.float64,
+                                                   device=dev)), 96)
+    E_op, A_op = dia_pencil(E, A, device=dev)
+    B, C = torch.as_tensor(B, device=dev), torch.as_tensor(C, device=dev)
+    if mesh is not None:
+        E_op, A_op, B, C = shard_pencil(mesh, E_op, A_op, B, C)
+        X0 = shard_lowrank(mesh, X0, PREC_BS)
+    prob = GDREProblem(E_op, A_op, B, C, X0, (4500.0, 4440.0))
+    sol, kry = _counted(lambda: solve_gdre_ros1_compiled(
+        prob, dt=-20.0, shifts=shifts, cfg=CompiledConfig(60, 10, 48), capacity=96,
+        abstol=1e-12))
+    X = gather_state(mesh, sol.X[-1], sol.K[-1], n)[0]
+    Ks = [gather_state(mesh, sol.X[-1], K, n)[1] for K in sol.K]
+    return X, Ks, sol.adi_iters, kry
+
+
+def lr_dense(X) -> torch.Tensor:
+    return X.L @ X.D @ X.L.T
+
+
+def compare_steps(name, sharded, ref) -> dict:
+    """Hold a sharded step's (X, K, ADI iterations, residual, Krylov
+    iterations) against one process's: equal ADI iterations, Krylov
+    iterations within `KRYLOV_TOL`, X and K within `STEP_TOL`.  Returns the
+    differences."""
+    X, K, it, _, kry = sharded
+    Xr, Kr, itr, _, kryr = ref
+    dX, dK = _rel(lr_dense(X), lr_dense(Xr)), _rel(K, Kr)
+    if not (it == itr and abs(kry - kryr) <= KRYLOV_TOL * kryr
+            and dX <= STEP_TOL and dK <= STEP_TOL):
+        raise AssertionError(f"sharded {name}: ADI {it} vs {itr}, Krylov {kry} vs {kryr}, "
+                             f"X {dX:.3e}, K {dK:.3e} (limit {STEP_TOL})")
+    return {"adi_iters": it, "krylov": (kry, kryr), "dX": dX, "dK": dK}
 
 
 def _parareal_problem(dev, n=96, slabs=2, tau=20.0):
@@ -111,57 +367,39 @@ def _run_parareal(mesh, dev, slabs):
     return dK, sol.parareal_info
 
 
-def _rank(rank, world, port, device, out):
+def _dryrun_rank(dev):
     import torch.distributed as dist
 
     from .mesh import make_mesh
 
-    torch.set_num_threads(1)
-    dev = torch.device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
-    try:
-        mesh = make_mesh(world, device=device)
-        if dev.type == "cuda":
-            dev = torch.device("cuda", torch.cuda.current_device())
-        worst = _check_products(mesh, dev, 64 * world, 16)
-        meshs = make_mesh(world, device=device, axis="slab")
-        dK, info = _run_parareal(meshs, dev, world)
-        if rank == 0:
-            out.put((worst, dK, info["iterations"], info["fine_iters_total"]))
-    finally:
-        dist.destroy_process_group()
+    world = dist.get_world_size()
+    n = 256 * world
+    mesh = make_mesh(world, device=dev.type)
+    worst = _check_products(mesh, dev, n, 16)
+    steps = {name: compare_steps(name, run(dev, n, mesh), run(dev, n))
+             for name, run in (("ros1", ros1_step_sharded), ("newton", newton_step_sharded))}
+    dK, info = _run_parareal(make_mesh(world, device=dev.type, axis="slab"), dev, world)
+    return worst, steps, dK, info["iterations"], info["fine_iters_total"]
 
 
 def dryrun_multichip(n_devices: int, device=None) -> dict:
     """Spawn ``n_devices`` ranks on ``device`` (default the card: one GPU per
-    rank, NCCL; ``"cpu"``: gloo), run the sharded products and one parareal
-    iteration over them (see the module docstring), print and return the
-    result.  Raises if a rank fails."""
-    import torch.multiprocessing as mp
-
+    rank, NCCL; ``"cpu"``: gloo) and run the sharded products, the sharded
+    Ros1 and Newton steps and one parareal iteration over them (see the
+    module docstring); print and return the result.  Raises if a rank fails
+    or the run outlasts `DEADLINE` seconds."""
     from ..config import resolve_device
 
-    dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() < n_devices:
-        raise RuntimeError(f"{n_devices} ranks need {n_devices} GPUs, found "
-                           f"{torch.cuda.device_count()}")
-    out = mp.get_context("spawn").SimpleQueue()
-    ranks = mp.start_processes(_rank, args=(n_devices, free_port(), dev.type, out),
-                               nprocs=n_devices, join=False, start_method="spawn")
-    result = None
-    # Drain the queue while waiting: a writer blocks on a full pipe.  join
-    # raises as soon as a rank fails.
-    while not ranks.join(timeout=1):
-        if result is None and not out.empty():
-            result = out.get()
-    worst, dK, iters, fine_iters = result if result is not None else out.get()
-    res = {"ranks": n_devices, "device": dev.type, "products_max_rel": worst,
-           "parareal_dK": dK, "parareal_iterations": iters,
-           "parareal_fine_iters": fine_iters, "not_run": NOT_RUN}
-    print(f"dryrun_multichip: {n_devices} ranks on {dev.type}: sharded DIA and "
-          f"block-ELL products within {worst:.2e} of the unsharded ones; parareal "
-          f"({n_devices} slabs, {iters} iteration) K within {dK:.2e} of one process; "
-          f"not run: {NOT_RUN}")
+    worst, steps, dK, iters, fine_iters = run_ranks(_dryrun_rank, n_devices, device)
+    res = {"ranks": n_devices, "device": resolve_device(device).type,
+           "n": 256 * n_devices, "products_max_rel": worst, "ros1_step": steps["ros1"],
+           "newton_step": steps["newton"], "parareal_dK": dK,
+           "parareal_iterations": iters, "parareal_fine_iters": fine_iters}
+    r, nt = steps["ros1"], steps["newton"]
+    print(f"dryrun_multichip: {n_devices} ranks on {res['device']}: sharded DIA and "
+          f"block-ELL products within {worst:.2e} of the unsharded ones; at "
+          f"n={res['n']} the sharded Ros1 step ({r['adi_iters']} ADI iterations) X "
+          f"{r['dX']:.2e}, K {r['dK']:.2e} and Newton step ({nt['adi_iters']} ADI "
+          f"iterations) X {nt['dX']:.2e} from one process; parareal ({n_devices} slabs, "
+          f"{iters} iteration) K within {dK:.2e} of one process")
     return res

@@ -10,23 +10,121 @@ on the card, gloo on the CPU):
   storage, a block-ELL operator by block rows (`shard_operator`);
 * tall-skinny factors ``L (n, r)`` and operands are split by rows
   (`shard_tall`, `shard_lowrank`; the placement `row_sharded`);
-* small inner factors ``D``, feedbacks ``K`` and shift buffers are held
-  whole by every rank (`shard_replicated`; the placement `replicated`).
+* small inner factors ``D`` and shift buffers are held whole by every rank
+  (`shard_replicated`; the placement `replicated`).
 
 Each rank holds its row shard as a plain tensor.  JAX's ``shard_map`` needs
 equal shards, hence the JAX package's ``pad_to=``; point-to-point sends do
-not, so rows split unevenly here: ``⌈n/W⌉`` rows (or block rows) per rank
-and a shorter last shard (`row_range`), with no padding.
+not, so rows split unevenly here: ``⌈n/W⌉`` rows (or blocks of rows) per
+rank and a shorter last shard (`row_range`), with no padding.  The compiled
+steps split whole 128-row blocks (``block=PREC_BS``), so that each rank's
+block-Jacobi blocks are the global ones.
+
+**Reductions over rows.**  JAX's GSPMD inserts a ``psum`` wherever a product
+contracts over the problem dimension.  Here that is written out: every such
+contraction (``BᵀL``, ``WᵀW``, the Krylov dots, the SMW's small systems, the
+TSQR of `lowrank.lr_compress`) goes through `row_allreduce` or
+`row_allgather`, which reduce over the ranks of the mesh made active by
+`use_mesh` (JAX's ``with mesh:``), and are the identity without one.  The
+compiled steps enter the mesh of their row-sharded operator themselves
+(`on_operator_mesh`): sharded operands select the sharded path.  A row
+shard's product raises outside ``use_mesh(its mesh)``, so none runs
+without the reductions around it.  A feedback
+``K = BᵀXE`` of a sharded step comes out split by columns.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import datetime
+import functools
+
 import torch
 
 from ..config import resolve_device
-from ..lowrank import LowRank
 
 AXIS = "x"
+#: Every process group of the port gets this timeout: a rank whose peers
+#: never join a collective raises instead of hanging.
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+#: Collectives run by the row-sharded paths in this process, by kind:
+#: ``all_reduce`` (`row_allreduce`), ``all_gather`` (`row_allgather`) and
+#: ``halo_exchange`` (`sharded_ops.halo_exchange`, one per product).
+collectives = collections.Counter()
+_active = None  # the mesh of `use_mesh`
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the mesh that `row_allreduce` and `row_allgather`
+    reduce over (``None``: no mesh, they are the identity) until the block
+    ends."""
+    global _active
+    prev, _active = _active, mesh
+    try:
+        yield mesh
+    finally:
+        _active = prev
+
+
+def active_mesh():
+    """The mesh of the innermost `use_mesh`, or ``None``."""
+    return _active
+
+
+def mesh_of(op):
+    """The mesh of a row-sharded operator (through a low-rank update's
+    base), or ``None`` for an unsharded one."""
+    from ..ops.operators import LowRankUpdateOp
+
+    return getattr(op.A if isinstance(op, LowRankUpdateOp) else op, "mesh", None)
+
+
+def on_operator_mesh(fn):
+    """Run ``fn(E, ...)`` under ``use_mesh(mesh_of(E))``: with a row-sharded
+    ``E`` every reduction over rows inside it is an all-reduce over the
+    mesh's ranks, with an unsharded one none."""
+    @functools.wraps(fn)
+    def run(E, *args, **kw):
+        with use_mesh(mesh_of(E)):
+            return fn(E, *args, **kw)
+    return run
+
+
+def row_allreduce(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of the active mesh (a new tensor),
+    or ``t`` itself without one."""
+    if _active is None:
+        return t
+    import torch.distributed as dist
+
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, group=_active.get_group())
+    collectives["all_reduce"] += 1
+    return t
+
+
+def row_allgather(t: torch.Tensor) -> list[torch.Tensor]:
+    """Every rank's ``t`` (all of one shape), in rank order, over the active
+    mesh; ``[t]`` without one."""
+    if _active is None:
+        return [t]
+    import torch.distributed as dist
+
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(_active.size())]
+    dist.all_gather(parts, t, group=_active.get_group())
+    collectives["all_gather"] += 1
+    return parts
+
+
+def row_norm(t: torch.Tensor) -> torch.Tensor:
+    """Frobenius norm of a tensor split by rows (or columns) over the
+    active mesh; ``torch.linalg.norm`` without one."""
+    if _active is None:
+        return torch.linalg.norm(t)
+    return torch.sqrt(row_allreduce(torch.linalg.norm(t) ** 2))
 
 
 def make_mesh(n_devices: int | None = None, device=None, axis: str = AXIS):
@@ -113,9 +211,11 @@ def _mesh_device(mesh, like: torch.Tensor):
     return torch.device(mesh.device_type)
 
 
-def shard_operator(mesh, op, rank: int | None = None, world: int | None = None):
+def shard_operator(mesh, op, rank: int | None = None, world: int | None = None,
+                   block: int = 1):
     """The rank's row shard of ``op``: a `ShardedDiaOp` (the diagonals over
-    its rows) or a `ShardedBellOp` (its block rows, block columns rebased to
+    its rows, split in ``block``-row blocks: ``PREC_BS`` for the compiled
+    steps) or a `ShardedBellOp` (its block rows, block columns rebased to
     the halo-extended operand), each with its halo width ``H``.  ``op`` is
     the whole operator, on the rank's device."""
     from ..ops.dia import DiaOp
@@ -124,7 +224,7 @@ def shard_operator(mesh, op, rank: int | None = None, world: int | None = None):
 
     rank, world = rank_and_size(mesh, rank, world)
     if isinstance(op, DiaOp):
-        return ShardedDiaOp.from_op(mesh, op, rank, world)
+        return ShardedDiaOp.from_op(mesh, op, rank, world, block)
     if isinstance(op, BellOp):
         return ShardedBellOp(mesh, op, rank=rank, world=world)
     raise TypeError(f"cannot shard operator {type(op)}")
@@ -139,9 +239,12 @@ def shard_tall(mesh, M: torch.Tensor, block: int = 1, rank: int | None = None,
     return M[r0:r1].to(_mesh_device(mesh, M)).contiguous()
 
 
-def shard_lowrank(mesh, X: LowRank, block: int = 1, rank: int | None = None,
-                  world: int | None = None) -> LowRank:
-    """``X`` with its outer factor split by rows, its inner factor whole."""
+def shard_lowrank(mesh, X, block: int = 1, rank: int | None = None,
+                  world: int | None = None):
+    """``X`` (a `LowRank`) with its outer factor split by rows, its inner
+    factor whole."""
+    from ..lowrank import LowRank
+
     return LowRank(L=shard_tall(mesh, X.L, block, rank, world),
                    D=shard_replicated(mesh, X.D), k=X.k)
 

@@ -11,7 +11,8 @@ order cannot deadlock.  Ranks 0 and W−1 have no neighbour beyond the matrix
 and take zeros there (the JAX version wraps around, harmlessly only because
 the out-of-range weights are zero).
 
-The local product on the halo-extended operand (``nl + 2H`` rows) goes
+The local product on the halo-extended operand (``nl + 2H`` rows, or
+columns of a lane-major state) goes
 through the shard's own kernel: K1 (`kernels.dia_spmm`) with the shard's
 diagonals zero-padded by ``H`` columns on each side, or K2
 (`kernels.bell_spmm`) with block columns rebased to the extended operand and
@@ -36,36 +37,41 @@ import torch.nn.functional as F
 
 from ..kernels import bell_spmm as k2
 from ..kernels import dia_spmm as k1
-from .mesh import rank_and_size, row_range
+from ..ops.dia import DiaOp
+from .mesh import active_mesh, collectives, rank_and_size, row_range
 
 
-def _smallest_shard(n: int, world: int) -> int:
-    per = -(-n // world)
-    return min(per, n - (world - 1) * per)
+def _smallest_shard(n: int, world: int, block: int = 1) -> int:
+    return min(r1 - r0 for r0, r1 in (row_range(n, world, r, block) for r in range(world)))
 
 
-def halo_exchange(X_l: torch.Tensor, H: int, mesh) -> torch.Tensor:
-    """``[rows of the previous rank's last H | X_l | the next rank's first
-    H]``, zeros where there is no neighbour."""
+def halo_exchange(X_l: torch.Tensor, H: int, mesh, dim: int = 0) -> torch.Tensor:
+    """``[the previous rank's last H | X_l | the next rank's first H]``
+    along ``dim`` (0: rows of an ``(nl, q)`` operand; 1: columns of a
+    lane-major ``(q, nl)`` one), zeros where there is no neighbour."""
     import torch.distributed as dist
 
     rank, world = mesh.get_local_rank(), mesh.size()
-    prev = X_l.new_zeros((H,) + tuple(X_l.shape[1:]))
-    nxt = X_l.new_zeros((H,) + tuple(X_l.shape[1:]))
+    shape = list(X_l.shape)
+    shape[dim] = H
+    prev, nxt = X_l.new_zeros(shape), X_l.new_zeros(shape)
     group = mesh.get_group()
     ops = []
+    nl = X_l.shape[dim]
+    # The slices are strided along dim 1: the sends need their own copies.
     if H and rank > 0:
         peer = dist.get_global_rank(group, rank - 1)
-        ops += [dist.P2POp(dist.isend, X_l[:H].contiguous(), peer, group),
+        ops += [dist.P2POp(dist.isend, X_l.narrow(dim, 0, H).contiguous(), peer, group),
                 dist.P2POp(dist.irecv, prev, peer, group)]
     if H and rank < world - 1:
         peer = dist.get_global_rank(group, rank + 1)
-        ops += [dist.P2POp(dist.isend, X_l[X_l.shape[0] - H:].contiguous(), peer, group),
+        ops += [dist.P2POp(dist.isend, X_l.narrow(dim, nl - H, H).contiguous(), peer, group),
                 dist.P2POp(dist.irecv, nxt, peer, group)]
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return torch.cat([prev, X_l, nxt])
+    collectives["halo_exchange"] += 1
+    return torch.cat([prev, X_l, nxt], dim=dim)
 
 
 def _extend(X: torch.Tensor, r0: int, r1: int, H: int) -> torch.Tensor:
@@ -75,42 +81,73 @@ def _extend(X: torch.Tensor, r0: int, r1: int, H: int) -> torch.Tensor:
     return F.pad(X[lo:hi], (0, 0) * (X.dim() - 1) + (lo - (r0 - H), (r1 + H) - hi))
 
 
-def _dia_mm_halo(data_l, offsets, X_l, H, mesh):
-    """Row-sharded DIA SpMM: the halo exchange, then K1 on the extended
-    operand with the shard's padded diagonals ``data_l`` (``(ndiag,
-    nl + 2H)``); returns the shard's ``nl`` rows."""
-    X_ext = halo_exchange(X_l, H, mesh)
-    return k1.dia_mm(data_l, offsets, X_ext)[H:H + X_l.shape[0]]
-
-
 @dataclasses.dataclass(frozen=True)
-class ShardedDiaOp:
+class ShardedDiaOp(DiaOp):
     """One rank's row shard ``[r0, r1)`` of a `DiaOp`: its diagonals over
     those rows with ``H`` zero columns on each side (``data``, and
-    ``data_t`` for the transpose), products `mm`/`tmm` on the rank's rows of
-    the operand."""
+    ``data_t`` for the transpose), products on the rank's rows of the
+    operand: `mm`/`tmm` on ``(nl, q)``, `mmT` on a lane-major ``(q, nl)``
+    state (the Krylov solvers' layout).  Each product exchanges ``H`` rows
+    (columns) with each neighbour (`halo_exchange`) and runs K1 on the
+    extended operand.  It raises outside ``use_mesh(mesh)``: there the
+    reductions over rows around it (`mesh.row_allreduce`) would sum this
+    rank alone.
 
-    data: torch.Tensor  # (ndiag, nl + 2H)
-    data_t: torch.Tensor  # (ndiag, nl + 2H)
-    offsets: tuple
-    n: int
-    rows: tuple  # (r0, r1)
-    H: int
+    It is the `DiaOp` it shards wherever the compiled steps read one:
+    ``n`` and ``shape`` are global, ``N`` is the rank's ``nl`` (the length
+    of its lane-major states), `diag` and `diag_blocks` are its own rows'
+    (the global blocks when ``r0`` is a multiple of the block size), and
+    `adjoint`, `ops.dia.dia_lin_comb` and ``dataclasses.replace`` keep the
+    shard."""
+
+    rows: tuple = (0, 0)  # (r0, r1)
+    H: int = 0
     mesh: object = None
 
     @classmethod
-    def from_op(cls, mesh, op, rank: int, world: int) -> "ShardedDiaOp":
-        r0, r1 = row_range(op.n, world, rank)
+    def from_op(cls, mesh, op, rank: int, world: int, block: int = 1) -> "ShardedDiaOp":
+        r0, r1 = row_range(op.n, world, rank, block)
         H = max((abs(o) for o in op.offsets), default=0)
-        if world > 1 and H > _smallest_shard(op.n, world):
-            raise ValueError(f"halo {H} exceeds the {_smallest_shard(op.n, world)} "
-                             "rows of the smallest shard; use fewer ranks")
+        smallest = _smallest_shard(op.n, world, block)
+        if world > 1 and H > smallest:
+            raise ValueError(f"halo {H} exceeds the {smallest} rows of the smallest "
+                             "shard; use fewer ranks")
 
         def pad(d):
             return F.pad(d[:, r0:r1], (H, H)).contiguous()
 
         return cls(data=pad(op.data), data_t=pad(op.data_t), offsets=op.offsets,
-                   n=op.n, rows=(r0, r1), H=H, mesh=mesh)
+                   n=op.n, nnz_=op.nnz_, symmetric=op.symmetric, rows=(r0, r1), H=H,
+                   mesh=mesh)
+
+    @property
+    def N(self) -> int:
+        return self.rows[1] - self.rows[0]
+
+    def _local(self) -> DiaOp:
+        """The diagonals over the rank's rows, couplings to the halo
+        dropped."""
+        s = slice(self.H, self.H + self.N)
+        return DiaOp(data=self.data[:, s], data_t=self.data_t[:, s], offsets=self.offsets,
+                     n=self.N, nnz_=self.nnz_)
+
+    def diag(self) -> torch.Tensor:
+        return self._local().diag()
+
+    def diag_blocks(self, bs: int = 128, pad_identity: bool = True) -> torch.Tensor:
+        """The ``(⌈nl/bs⌉, bs, bs)`` diagonal blocks of the rank's rows (as
+        `DiaOp.diag_blocks`).  Raises where the shard cuts a block: then
+        they would not be the global operator's."""
+        r0, r1 = self.rows
+        if r0 % bs or (r1 % bs and r1 != self.n):
+            raise ValueError(f"rows [{r0}, {r1}) cut a {bs}-row block: shard the "
+                             f"operator with block={bs}")
+        return self._local().diag_blocks(bs, pad_identity)
+
+    def to_dense(self):
+        raise NotImplementedError("a row shard has no whole form: gather the operator")
+
+    to_scipy = to_dense
 
     def extend(self, X: torch.Tensor) -> torch.Tensor:
         """The halo-extended operand the exchange delivers, sliced from the
@@ -122,26 +159,23 @@ class ShardedDiaOp:
         halo-extended operand ``X_ext`` (``(nl + 2H, q)`` or ``(nl + 2H,)``)."""
         if X_ext.dim() == 1:
             return self.local_mm(X_ext[:, None], t)[:, 0]
-        if t:
-            offs = tuple(-o for o in self.offsets)
-            Y = k1.dia_mm(self.data_t, offs, X_ext)
-        else:
-            Y = k1.dia_mm(self.data, self.offsets, X_ext)
-        return Y[self.H:self.H + self.rows[1] - self.rows[0]]
+        offsets = tuple(-o for o in self.offsets) if t else self.offsets
+        Y = self._product(lambda d, x: k1.dia_mm(d, offsets, x), X_ext, dim=1, t=t)
+        return Y[self.H:self.H + self.N]
 
-    def _mm(self, X_l, t):
-        squeeze = X_l.dim() == 1
-        if squeeze:
-            X_l = X_l[:, None]
+    def _exchange(self, X_l: torch.Tensor, dim: int) -> torch.Tensor:
         if self.mesh is None:
             raise ValueError("an emulated shard has no exchange: use extend "
                              "and local_mm")
-        if t:
-            Y = _dia_mm_halo(self.data_t, tuple(-o for o in self.offsets), X_l,
-                             self.H, self.mesh)
-        else:
-            Y = _dia_mm_halo(self.data, self.offsets, X_l, self.H, self.mesh)
-        return Y[:, 0] if squeeze else Y
+        if active_mesh() is not self.mesh:
+            raise RuntimeError("a row-sharded product outside use_mesh(its mesh): "
+                               "the reductions around it would not span the ranks")
+        return halo_exchange(X_l, self.H, self.mesh, dim)
+
+    def _mm(self, X_l, t):
+        if X_l.dim() == 1:
+            return self._mm(X_l[:, None], t)[:, 0]
+        return self.local_mm(self._exchange(X_l, 0), t)
 
     def mm(self, X_l: torch.Tensor) -> torch.Tensor:
         """The rank's rows of ``A @ X`` from its rows ``X_l`` of ``X``."""
@@ -150,6 +184,16 @@ class ShardedDiaOp:
     def tmm(self, X_l: torch.Tensor) -> torch.Tensor:
         """The rank's rows of ``Aᵀ @ X`` from its rows ``X_l`` of ``X``."""
         return self._mm(X_l, True)
+
+    def mmT(self, Xt_l: torch.Tensor) -> torch.Tensor:
+        """Lane-major: the rank's columns of ``(A @ Xtᵀ)ᵀ`` from its
+        columns ``Xt_l`` (``(q, nl)``) of ``Xt``."""
+        Y = self._product(lambda d, x: k1.dia_mm_t(d, self.offsets, x),
+                          self._exchange(Xt_l, 1), dim=0)
+        return Y[:, self.H:self.H + self.N]
+
+    def mmT_axpby(self, Xt_l: torch.Tensor, Z: torch.Tensor, alpha, beta) -> torch.Tensor:
+        return alpha * self.mmT(Xt_l) + beta * Z
 
 
 class ShardedBellSpmm:

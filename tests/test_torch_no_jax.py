@@ -1,5 +1,6 @@
-"""The port (its ``parallel/`` layer and parareal included), `chip_smoke.py` and
-`profile_steps.py` import no JAX, and CPU tensors never reach kernels K1 and K2.
+"""The port (its ``parallel/`` layer, parareal and the row-sharded steps
+included), `chip_smoke.py` and `profile_steps.py` import no JAX, and CPU
+tensors never reach kernels K1 and K2.
 
 Runs in a subprocess with ``jax`` blocked in ``sys.modules`` (the test
 process itself has JAX loaded by the conftest).
@@ -103,6 +104,15 @@ sh.local_mm(sh.extend(Y)); sh.local_mm(sh.extend(Y), t=True)
 sb = shard_operator(None, bE, rank=0, world=2)
 sb.fwd.local_mm(sb.fwd.extend(Y)); sb.bwd.local_mm(sb.bwd.extend(Y[:, 0]))
 assert k1.launches == 0 and k2.launches == 0, (k1.launches, k2.launches)
+import torch.distributed as dist
+from differentialriccatiequations_jl_tpu_torch.parallel import dryrun
+from differentialriccatiequations_jl_tpu_torch.parallel.mesh import collectives, make_mesh
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{dryrun.free_port()}",
+                        world_size=1, rank=0)
+X, K, iters, res, _ = dryrun.ros1_step_sharded(torch.device("cpu"), 256, make_mesh(1, "cpu"))
+dist.destroy_process_group()
+assert iters > 0 and collectives["all_reduce"] > 0 and collectives["halo_exchange"] > 0
+assert k1.launches == 0, k1.launches
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                for m, v in sys.modules.items() if v is not None)
 print("OK", len(names))

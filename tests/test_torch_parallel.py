@@ -16,8 +16,10 @@ one group:
 
 Products within 1e-12 relative (the same sums; only the order of the
 plain versions' diagonal or slot terms is shared).  A second spawn runs
-`entry.dryrun_multichip(2, device="cpu")`.  The validation errors need no
-group.
+`entry.dryrun_multichip(2, device="cpu")`, whose sharded Ros1 and Newton
+steps `tests/test_torch_sharded_steps.py` covers in full.  Both spawns go
+through `dryrun.run_ranks` (a group timeout, a deadline).  The validation
+errors need no group.
 """
 
 import numpy as np
@@ -36,16 +38,17 @@ from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_sh
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_from_scipy, dia_pencil
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import (
     bell_from_scipy, bell_pencil)
-from differentialriccatiequations_jl_tpu_torch.parallel.dryrun import free_port
+from differentialriccatiequations_jl_tpu_torch.parallel.dryrun import run_ranks
 from differentialriccatiequations_jl_tpu_torch.parallel.mesh import (
     make_mesh, replicated, row_range, row_sharded, shard_lowrank, shard_operator, shard_tall,
-    unshard_tall)
+    unshard_tall, use_mesh)
 from differentialriccatiequations_jl_tpu_torch.parallel.sharded_ops import ShardedBellSpmm
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate
 
 PRODUCT_TOL = 1e-12
 PARAREAL_K_TOL = 1e-10
 PARAREAL_DELTA_TOL = 1e-8
+STEP_TOL = 1e-10
 CFG = CompiledConfig(maxiters=60, compression_interval=10, r_res=48)
 
 
@@ -115,35 +118,27 @@ def _check_parareal():
         solve_gdre_parareal(prob6, alg=Parareal(slabs=3), mesh=mesh, **kw6)
 
 
-def _rank(rank, world, port):
-    import torch.distributed as dist
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
-    try:
-        _check_products(make_mesh(world, device="cpu"))
-        _check_parareal()
-    finally:
-        dist.destroy_process_group()
+def _ranks(dev):
+    mesh = make_mesh(device=dev.type)
+    with use_mesh(mesh):  # a sharded product runs only under its mesh
+        _check_products(mesh)
+    _check_parareal()
 
 
 def test_two_gloo_ranks():
     """The sharded products and parareal over 2 gloo ranks (one spawn);
     a failing rank's assertion is raised here."""
-    import torch.multiprocessing as mp
-
-    mp.start_processes(_rank, args=(2, free_port()), nprocs=2, join=True,
-                       start_method="spawn")
+    run_ranks(_ranks, 2, "cpu")
 
 
 def test_dryrun_multichip_cpu():
     from differentialriccatiequations_jl_tpu_torch.entry import dryrun_multichip
 
     res = dryrun_multichip(2, device="cpu")
-    assert res["ranks"] == 2 and res["products_max_rel"] <= PRODUCT_TOL
+    assert res["ranks"] == 2 and res["n"] == 512 and res["products_max_rel"] <= PRODUCT_TOL
     assert res["parareal_dK"] <= PARAREAL_K_TOL and res["parareal_iterations"] == 1
-    assert "Ros1 and Newton" in res["not_run"]
+    for step in (res["ros1_step"], res["newton_step"]):
+        assert step["dX"] <= STEP_TOL and step["dK"] <= STEP_TOL and step["adi_iters"] > 0
 
 
 def test_sharded_validation():

@@ -82,11 +82,23 @@ both compilers started together, and then:
     collectives per step and peak memory (one card has no neighbour: the
     halo exchanges send nothing); then the JAX package's sharded-sweep test
     configuration at n=1357 over 4 gloo ranks on the host's CPU against one
-    process.
+    process;
+18. runs the block-ELL shards, Ros2 on shards, the f32 refined core and
+    GMRES over a mesh (ROADMAP item 10c), each without a group and then on
+    row shards over a world-size-1 NCCL group, held to each other (equal
+    ADI iterations, Krylov iterations within 2 %, K, LDLᵀ and solutions
+    within 1e-10): 18a phase 5's block-ELL Ros2 sweep at n=79841 on
+    block-ELL shards (equal K2 launches; walls, collectives per step and
+    peaks printed), 18b two Ros2 steps on DIA shards from phase 3's inputs,
+    18c phase 15's compiled GALE with the f32 core on DIA shards and its
+    refined block-ELL solve on block-ELL shards (launches by dtype), 18d a
+    GMRES solve of Aᵀ − Eᵀ on DIA shards; then 18e, at n=1357 over 4 gloo
+    ranks on the host's CPU against one process, the block-ELL Ros2 sweep
+    (phase 4's configuration), a `gram` compression and the GMRES solve.
 
 Phases 10, 11, 14 and 15 hold each solver's residual against an
 independent evaluation (`residual`).  Every full-size path (phases 3, 5, 7,
-10, 11, 13, 14, 15, 16 and 17) records the products it hands K1 and K2
+10, 11, 13, 14, 15, 16, 17 and 18) records the products it hands K1 and K2
 (`ProductLog`: product, dtype, width, operand strides); after the run each
 kernel is held against its plain version at every one of them.
 
@@ -96,7 +108,7 @@ builds the kernels and runs phase 7 alone (at another capacity of ``X``);
 ``--host-only`` builds them and runs phases 8 to 11, ``--dense-only``
 phases 12 and 13, ``--gmres-only`` phase 14 and ``--mixed-only`` phase 15
 (both flags: both phases), ``--parareal-only`` phase 16, ``--sharded-only``
-phase 17.
+phases 17 and 18.
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -140,8 +152,8 @@ from differentialriccatiequations_jl_tpu_torch.models.compiled import (
     _ROS2_GAMMA, PREC_BS, CappedADI, CompiledConfig, PerStepHeuristic, _newton_step_compiled,
     _residual_norm,
     build_dia_shift_ops, default_dia_krylov, pair_encode_shifts, ros1_initial_residual,
-    ros1_step_compiled, solve_gare_newton_compiled, solve_gdre_ros1_compiled,
-    solve_gdre_ros2_compiled)
+    ros1_step_compiled, ros2_step_compiled, solve_gare_newton_compiled,
+    solve_gdre_ros1_compiled, solve_gdre_ros2_compiled)
 from differentialriccatiequations_jl_tpu_torch.models.parareal import (
     Parareal, solve_gdre_parareal)
 from differentialriccatiequations_jl_tpu_torch.models.problems import GAREProblem, GDREProblem
@@ -153,7 +165,8 @@ from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_sh
 from differentialriccatiequations_jl_tpu_torch.ops import blocklinear
 from differentialriccatiequations_jl_tpu_torch.ops.shifted import shifted_operator
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil, shifted_dia
-from differentialriccatiequations_jl_tpu_torch.ops.operators import DenseOp, lin_comb, op_astype
+from differentialriccatiequations_jl_tpu_torch.ops.operators import (
+    DenseOp, lin_comb, op_astype, scale_op)
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import (
     bell_from_scipy, bell_pencil, shifted_bell)
 from differentialriccatiequations_jl_tpu_torch.parallel import dryrun
@@ -161,7 +174,7 @@ from differentialriccatiequations_jl_tpu_torch.parallel import mesh as mesh_mod
 from differentialriccatiequations_jl_tpu_torch.parallel import sharded_ops
 from differentialriccatiequations_jl_tpu_torch.parallel.dryrun import free_port
 from differentialriccatiequations_jl_tpu_torch.parallel.mesh import (
-    GROUP_TIMEOUT, make_mesh, shard_lowrank, shard_operator)
+    GROUP_TIMEOUT, make_mesh, shard_lowrank, shard_operator, shard_tall, unshard_tall)
 from differentialriccatiequations_jl_tpu_torch.utils import timers
 from differentialriccatiequations_jl_tpu_torch.utils.callbacks import Observer
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import (
@@ -1945,35 +1958,44 @@ def mixed_krylov(refine_iters=3):
 _PENZL = {}  # the 16 Penzl shifts of the pencil, by size (host only)
 
 
-def run_gale_mixed(E, A, C, dev, solve_dtype):
+def run_gale_mixed(E, A, C, dev, solve_dtype, mesh=None):
     """``bench.py``'s ``substage_gale_mixed`` on ``dev``: 16 Penzl shifts,
     the compiled ADI (`MIXED_GALE_CFG`, capacity 160, abstol 1e-10·‖C‖)
     with an f32 core and 3 refinements (``solve_dtype="float32"``) or the
-    f64 core (``None``).  Returns a dict of its results."""
+    f64 core (``None``); on DIA row shards over ``mesh`` if given.  Returns
+    a dict of its results (``X`` gathered)."""
     n = E.shape[0]
     t0 = time.perf_counter()
     if n not in _PENZL:
         _PENZL[n] = np.asarray([v.real for v in heuristic_shifts_host(E, A, 16, 20, 20)])
     shifts = _PENZL[n]
     Eo, Ao = dia_pencil(E, A, dtype=torch.float64, device=dev)
-    kry = dataclasses.replace(mixed_krylov(), solve_dtype=solve_dtype)
-    lus = build_dia_shift_ops(Eo, Ao, shifts, krylov_cfg=kry)
-    Cf = lowrank(torch.as_tensor(np.ascontiguousarray(C.T), device=dev))
-    norm_c = float(lr_norm(Cf))
+    Ct = torch.as_tensor(np.ascontiguousarray(C.T), device=dev)
     X0 = lr_zero(n, MIXED_GALE_CAPACITY, torch.float64, dev)
-    res0 = residual_gale_lowrank(Eo, Ao, Cf, X0, r_out=MIXED_GALE_CFG.r_res)
-    if dev != "cpu":
-        torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
-    kry0, sol0 = blocklinear.krylov_iterations, blocklinear.krylov_solves
-    t0 = time.perf_counter()
-    X, _, iters, res = compiled.adi_compiled(
-        Eo, Ao, _mask_cols(res0.L, res0.k), res0.D, res0.k, X0, shifts, 1e-10 * norm_c,
-        MIXED_GALE_CFG, lus)
-    if dev != "cpu":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    true = float(lr_norm(residual_gale_lowrank(Eo, Ao, Cf, X, r_out=2 * MIXED_GALE_CFG.r_res)))
+    if mesh is not None:
+        Eo, Ao = (shard_operator(mesh, op, block=PREC_BS) for op in (Eo, Ao))
+        Ct, X0 = shard_tall(mesh, Ct, PREC_BS), shard_lowrank(mesh, X0, PREC_BS)
+    kry = dataclasses.replace(mixed_krylov(), solve_dtype=solve_dtype)
+    with mesh_mod.use_mesh(mesh):
+        lus = build_dia_shift_ops(Eo, Ao, shifts, krylov_cfg=kry)
+        Cf = lowrank(Ct)
+        norm_c = float(lr_norm(Cf))
+        res0 = residual_gale_lowrank(Eo, Ao, Cf, X0, r_out=MIXED_GALE_CFG.r_res)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        kry0, sol0 = blocklinear.krylov_iterations, blocklinear.krylov_solves
+        t0 = time.perf_counter()
+        X, _, iters, res = compiled.adi_compiled(
+            Eo, Ao, _mask_cols(res0.L, res0.k), res0.D, res0.k, X0, shifts, 1e-10 * norm_c,
+            MIXED_GALE_CFG, lus)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        true = float(lr_norm(residual_gale_lowrank(Eo, Ao, Cf, X,
+                                                   r_out=2 * MIXED_GALE_CFG.r_res)))
+    if mesh is not None:
+        X = LowRank(L=unshard_tall(mesh, X.L, n, PREC_BS), D=X.D, k=X.k)
     return {"X": X, "iters": iters, "tracked": float(res) / norm_c, "true": true / norm_c,
             "wall": wall, "setup": setup, "krylov": blocklinear.krylov_iterations - kry0,
             "solves": blocklinear.krylov_solves - sol0, "prec_dtype": lus.prec_inv.dtype}
@@ -2325,18 +2347,13 @@ def phase_sharded_products(E, A, dev):
     torch.cuda.synchronize()
     log(f"{tag} {SHARDS} shards built in {time.perf_counter() - t0:.2f} s: DIA rows "
         f"{[s.rows for s in shards['dia']]}, halo {shards['dia'][0].H}; block-ELL rows "
-        f"{[s.rows for s in shards['bell']]}, halo {shards['bell'][0].fwd.halo} block rows")
+        f"{[s.rows for s in shards['bell']]}, halo {shards['bell'][0].H} block rows")
 
     outs, paths = {}, {}
     for fmt, kern in (("dia", k1), ("bell", k2)):
         reset_launches()  # this path's run starts here
         for t in (False, True):
-            if fmt == "dia":
-                parts = [s.local_mm(s.extend(X), t=t) for s in shards["dia"]]
-            else:
-                spmms = [s.bwd if t else s.fwd for s in shards["bell"]]
-                parts = [p.local_mm(p.extend(X)) for p in spmms]
-            outs[(fmt, t)] = torch.cat(parts)
+            outs[(fmt, t)] = torch.cat([s.local_mm(s.extend(X), t=t) for s in shards[fmt]])
         torch.cuda.synchronize()
         paths[fmt] = kern.launches  # ... and ends here
     errs = {}
@@ -2436,17 +2453,17 @@ def newton_step_run(E_op, A_op, B_d, C_d, X0, mesh=None):
             dict(mesh_mod.collectives - c0))
 
 
-def hold_sharded(tag, got, ref, krylov):
-    """A sharded run (X, K, ADI iterations) against its twin without a
-    group; ``krylov``: (sharded, twin) Krylov iterations."""
-    dX, dK = lr_rel_diff(got[0], ref[0]), rel_diff(got[1], ref[1])
-    log(f"{tag}: sharded vs unsharded: ADI {got[2]} / {ref[2]}, Krylov {krylov[0]} / "
-        f"{krylov[1]}, LDLᵀ {dX:.3e}, K {dK:.3e}")
-    check(got[2] == ref[2], f"{tag}: ADI iterations differ ({got[2]}, {ref[2]})")
-    check(abs(krylov[0] - krylov[1]) <= KRYLOV_REL_TOL * krylov[1],
-          f"{tag}: Krylov iterations differ beyond {KRYLOV_REL_TOL:.0%}: {krylov}")
-    check(dX <= SHARDED_TOL and dK <= SHARDED_TOL,
-          f"{tag}: LDLᵀ {dX:.3e}, K {dK:.3e} beyond {SHARDED_TOL}")
+def hold_twins(tag, counts, diffs):
+    """``counts``: {name: (sharded, unsharded)}, equal but for ``Krylov``
+    iterations (within `KRYLOV_REL_TOL`); ``diffs``: {name: relative
+    difference}, each within `SHARDED_TOL`."""
+    log(f"{tag}: sharded vs unsharded: "
+        + ", ".join(f"{k} {a} / {b}" for k, (a, b) in counts.items()) + "; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()))
+    for name, (a, b) in counts.items():
+        same = abs(a - b) <= KRYLOV_REL_TOL * b if name == "Krylov" else a == b
+        check(same, f"{tag}: {name} {a} sharded, {b} unsharded")
+    check(all(v <= SHARDED_TOL for v in diffs.values()), f"{tag}: {diffs} beyond {SHARDED_TOL}")
 
 
 def phase_sharded_steps_card(E, A, B, C, dev):
@@ -2497,12 +2514,13 @@ def phase_sharded_steps_card(E, A, B, C, dev):
         log(f"{tag} Ros1 step {j + 1} ({name} buffer): wall {wall:.3f} s sharded, "
             f"{ref[1]:.3f} s unsharded; ADI iters {iters}, res {res:.6e}; K1 launches {nl} "
             f"(unsharded {ref[6]}); collectives {coll}")
-        hold_sharded(f"{tag} Ros1 step {j + 1}", (X, K, iters), (ref[4], ref[5], ref[2]),
-                     (ns, ref[7]))
+        hold_twins(f"{tag} Ros1 step {j + 1}", {"ADI": (iters, ref[2]), "Krylov": (ns, ref[7])},
+                   {"LDLᵀ": lr_rel_diff(X, ref[4]), "K": rel_diff(K, ref[5])})
     X, K, iters, wall, nl, ns, coll = out["newton"]
     log(f"{tag} Newton step: wall {wall:.3f} s sharded, {ref_newton[3]:.3f} s unsharded; "
         f"ADI iters {iters}; K1 launches {nl} (unsharded {ref_newton[4]}); collectives {coll}")
-    hold_sharded(f"{tag} Newton step", (X, K, iters), ref_newton[:3], (ns, ref_newton[5]))
+    hold_twins(f"{tag} Newton step", {"ADI": (iters, ref_newton[2]), "Krylov": (ns, ref_newton[5])},
+               {"LDLᵀ": lr_rel_diff(X, ref_newton[0]), "K": rel_diff(K, ref_newton[1])})
     log(f"{tag} peak device memory above the run's start, sharded (unsharded): Ros1 "
         f"steps {out['ros1_peak']:.3f} ({peaks['ros1']:.3f}) GiB, Newton step "
         f"{out['newton_peak']:.3f} ({peaks['newton']:.3f}) GiB; K1 launches {launches}")
@@ -2555,6 +2573,277 @@ def phase_sharded(E, A, B, C, dev, k1_launches):
     return err
 
 
+# --- phase 18: block-ELL shards, Ros2 on shards, the f32 core and GMRES over a mesh ------
+
+
+class StepMarks:
+    """A sweep's ``observer``: at each stop the wall since the last one
+    (synchronized), ADI iterations, residual, K2 launches, Krylov iterations
+    and collectives (`mesh.collectives`) since the last one."""
+
+    def __init__(self):
+        self.rows = []
+        self._mark()
+
+    def _mark(self):
+        torch.cuda.synchronize()
+        self.t, self.k2, self.kry = time.perf_counter(), k2.launches, blocklinear.krylov_iterations
+        self.coll = collections.Counter(mesh_mod.collectives)
+
+    def __call__(self, i, X, K, iters, res):
+        torch.cuda.synchronize()
+        self.rows.append((i, time.perf_counter() - self.t, iters,
+                          None if res is None else float(res), k2.launches - self.k2,
+                          blocklinear.krylov_iterations - self.kry,
+                          dict(mesh_mod.collectives - self.coll)))
+        self._mark()
+
+
+def run_twins(tag, run, mesh):
+    """``run(None)``, then ``run(mesh)``: each a main path whose launches
+    are counted from 0 (reset just before it, read just after it), and
+    whose products are held to the plain versions after it (`ProductLog`).
+    Returns ({"unsharded"/"sharded": (result, K1 and K2 launches by
+    dtype)}, {kernel: max abs error})."""
+    outs, errs = {}, {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        with ProductLog() as products:
+            reset_launches()  # this path's run starts here
+            out = run(m)
+            torch.cuda.synchronize()
+            outs[name] = (out, dtype_launches(k1), dtype_launches(k2))  # ... and ends here
+        for kern, err in products.check(f"{tag} {name}").items():
+            errs[kern] = max(errs.get(kern, 0.0), err)
+    return outs, errs
+
+
+def phase_shards_bell(E, A, B, C, dev, mesh):
+    """Phase 18a: phase 5's block-ELL Ros2 sweep at n=79841 (bs = 128, 16
+    Penzl shifts, capacity 96, 5 steps), without a group, then on block-ELL
+    row shards over ``mesh``; the unsharded run's shifted operators are
+    freed before the sharded run builds its own.  Returns (K2 launches of
+    the sharded run, max abs errors, the block-ELL pencil)."""
+    tag = f"[shards bell n={N_FULL}]"
+    t0 = time.perf_counter()
+    E_b = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+    shifts = dryrun.sweep_shifts(E, A, "ros2", TAU, 16)
+    X0 = dryrun.rail_x0(E, C, dev, CAPACITY)
+    B_d, C_d = (torch.as_tensor(M, dtype=torch.float64, device=dev) for M in (B, C))
+    torch.cuda.synchronize()
+    log(f"{tag} pencil, 16 Penzl shifts of (E, γτA − E/2) and X0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def run(m):
+        marks = StepMarks()
+        t = time.perf_counter()
+        out, peak = with_peak(lambda: dryrun.run_sweep(
+            "ros2", *E_b, B_d, C_d, X0, shifts, m, tau=TAU, nsteps=FULL_STEPS, cfg=SWEEP_CFG,
+            capacity=CAPACITY, observer=marks))
+        return out, peak, marks.rows, time.perf_counter() - t
+
+    outs, errs = run_twins(tag, run, mesh)
+    (ref, peak_r, rows_r, wall_r), _, l2_r = outs["unsharded"]
+    (got, peak, rows, wall), _, l2 = outs["sharded"]
+    for (i, w, it, res, nl, kry, coll), (_, w_r, it_r, _, nl_r, kry_r, _) in zip(rows, rows_r):
+        what = "set-up (shards, shifted operators, block inverses)" if i == 0 else f"step {i}"
+        log(f"{tag} {what}: wall {w:.3f} s sharded, {w_r:.3f} s unsharded; ADI {it} / {it_r}, "
+            f"res {res}; K2 launches {nl} / {nl_r}; Krylov {kry} / {kry_r}; collectives {coll}")
+        check(it == it_r and nl == nl_r, f"{tag} {what}: ADI iterations or K2 launches differ")
+    dX = lr_rel_diff(got[0], ref[0])
+    dK = max(rel_diff(a, b) for a, b in zip(got[1], ref[1]))
+    hold_twins(tag, {"ADI": (got[2], ref[2]), "Krylov": (got[3], ref[3])},
+               {"LDLᵀ": dX, "worst K": dK})
+    log(f"{tag} {FULL_STEPS} steps: wall {wall:.3f} s sharded, {wall_r:.3f} s unsharded; K2 "
+        f"launches {l2['f64']} / {l2_r['f64']}; peak device memory above the run's start "
+        f"{peak:.3f} / {peak_r:.3f} GiB; {card_line()}")
+    check(l2["f64"] > 0 and l2 == l2_r, f"{tag}: K2 launches {l2} sharded, {l2_r} unsharded")
+    check(all(bool(torch.isfinite(K).all()) for K in got[1]), f"{tag}: non-finite K")
+    return l2["f64"], errs, E_b
+
+
+def ros2_steps_run(E_op, A_op, B_d, C_d, X0, mesh=None):
+    """Phase 18b's two Ros2 steps from phase 3's X0 (the pair buffer, then
+    the real one; τ = 10, `FULL_STEP_CFG`), on DIA row shards over ``mesh``
+    if given: rows (buffer, wall, ADI iterations, residual, X, K gathered,
+    Krylov iterations, collectives)."""
+    if mesh is not None:
+        E_op, A_op, B_d, C_d = dryrun.shard_pencil(mesh, E_op, A_op, B_d, C_d)
+        X0 = shard_lowrank(mesh, X0, PREC_BS)
+    F_core = lin_comb(scale_op(A_op, _ROS2_GAMMA * FULL_STEP_TAU), -0.5, E_op)
+    cache = {}
+    ops = {name: build_dia_shift_ops(E_op, F_core, FULL_STEP_BUFFERS[name], block_cache=cache)
+           for name in ("pair", "real")}
+    rows, X = [], X0
+    for name in ("pair", "real"):
+        s0, c0 = blocklinear.krylov_iterations, collections.Counter(mesh_mod.collectives)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        X, K, iters, res = ros2_step_compiled(E_op, A_op, B_d, C_d, X, FULL_STEP_TAU,
+                                              FULL_STEP_BUFFERS[name], FULL_STEP_ABSTOL,
+                                              FULL_STEP_CFG, ops[name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rows.append((name, wall, iters, float(res), *dryrun.gather_state(mesh, X, K, E_op.n),
+                     blocklinear.krylov_iterations - s0, dict(mesh_mod.collectives - c0)))
+    return rows
+
+
+def phase_shards_dia(E, A, B, C, dev, mesh, E_b):
+    """Phases 18b–d on the card, each without a group, then on row shards
+    over ``mesh``: 18b two Ros2 steps on DIA shards (phase 3's inputs); 18c
+    phase 15's compiled GALE with the f32 core on DIA shards and one refined
+    block-ELL solve (phase 15's) on block-ELL shards of ``E_b``; 18d
+    `GMRES_KRYLOV` on Aᵀ − Eᵀ in DIA.  Returns ({path: K1 launches}, {path:
+    K2 launches}, max abs errors)."""
+    inputs = full_step_inputs(E, A, B, C, dev)
+    l1, l2, errs = {}, {}, {}
+
+    def merge(e):
+        for kern, err in e.items():
+            errs[kern] = max(errs.get(kern, 0.0), err)
+
+    tag = f"[shards dia ros2 n={N_FULL}]"
+    outs, e = run_twins(tag, lambda m: ros2_steps_run(*inputs, mesh=m), mesh)
+    merge(e)
+    (rows, k1s, _), (rows_r, k1_r, _) = outs["sharded"], outs["unsharded"]
+    for row, ref in zip(rows, rows_r):
+        name, wall, iters, res, X, K, kry, coll = row
+        log(f"{tag} Ros2 step ({name} buffer): wall {wall:.3f} s sharded, {ref[1]:.3f} s "
+            f"unsharded; ADI {iters}, res {res:.6e}; collectives {coll}")
+        hold_twins(f"{tag} {name} step", {"ADI": (iters, ref[2]), "Krylov": (kry, ref[6])},
+                   {"LDLᵀ": lr_rel_diff(X, ref[4]), "K": rel_diff(K, ref[5])})
+    log(f"{tag} K1 launches {k1s} sharded, {k1_r} unsharded")
+    check(k1s["f64"] > 0 and k1s == k1_r, f"{tag}: K1 launches {k1s}, {k1_r}")
+    l1["sharded_dia_ros2"] = k1s["f64"]
+
+    tag = f"[shards gale f32 core n={N_FULL}]"
+    outs, e = run_twins(tag, lambda m: run_gale_mixed(E, A, C, dev, "float32", mesh=m), mesh)
+    merge(e)
+    (g, k1s, _), (r, k1_r, _) = outs["sharded"], outs["unsharded"]
+    log(f"{tag}: wall {g['wall']:.3f} s sharded, {r['wall']:.3f} s unsharded; true relative "
+        f"residual {g['true']:.6e} / {r['true']:.6e}; K1 launches {k1s} / {k1_r}")
+    hold_twins(tag, {"ADI": (g["iters"], r["iters"]), "Krylov": (g["krylov"], r["krylov"])},
+               {"LDLᵀ": lr_rel_diff(g["X"], r["X"]),
+                "residual": abs(g["true"] - r["true"]) / r["true"]})
+    check(k1s["f32"] > 0 and k1s == k1_r, f"{tag}: K1 launches {k1s}, {k1_r}")
+    by_dtype(l1, {"sharded_gale_f32_core": k1s})
+
+    scale = float(np.mean(np.abs(A.diagonal())) / np.mean(np.abs(E.diagonal())))
+    W = torch.as_tensor(np.random.default_rng(16).standard_normal((E.shape[0], 7)), device=dev)
+    for tag, key, op, alg, kern in (
+            (f"[shards bell refined n={N_FULL}]", "sharded_bell_refined",
+             shifted_bell(*E_b, -scale), MIXED_BELL_KRYLOV, 1),
+            (f"[shards gmres n={N_FULL}]", "sharded_gmres",
+             shifted_dia(*inputs[:2], -1.0), GMRES_KRYLOV, 0)):
+        def solve(m, op=op, alg=alg):
+            t = time.perf_counter()
+            x, kry = dryrun.solve_sharded(m, op, W, alg)
+            return x, kry, time.perf_counter() - t
+
+        outs, e = run_twins(tag, solve, mesh)
+        merge(e)
+        (x, kry, wall), *ls = outs["sharded"]
+        (x_r, kry_r, wall_r), *ls_r = outs["unsharded"]
+        res = float(torch.linalg.norm(op.mm(x) - W) / torch.linalg.norm(W))
+        log(f"{tag}: wall {wall:.3f} s sharded, {wall_r:.3f} s unsharded; relative residual "
+            f"{res:.3e}; {'K2' if kern else 'K1'} launches {ls[kern]} / {ls_r[kern]}")
+        hold_twins(tag, {"Krylov": (kry, kry_r)}, {"solution": rel_diff(x, x_r)})
+        check(res <= 1e-10 and ls == ls_r, f"{tag}: residual {res:.3e}, launches {ls}, {ls_r}")
+        check(alg.solve_dtype is None or ls[kern]["f32"] > 0, f"{tag}: no f32 launch")
+        if kern:
+            by_dtype(l2, {key: ls[kern]})
+        else:
+            l1[key] = ls[kern]["f64"]
+    return l1, l2, errs
+
+
+def small_factor(n, seed=18):
+    """An ``(n, 48)`` f64 factor with 40 active columns and a symmetric
+    indefinite inner factor (18e's `gram` compression)."""
+    rng = np.random.default_rng(seed)
+    L, D = np.zeros((n, 48)), np.zeros((48, 48))
+    L[:, :40] = rng.standard_normal((n, 40))
+    S = rng.standard_normal((40, 40))
+    D[:40, :40] = S + S.T
+    return lowrank(torch.as_tensor(L), torch.as_tensor(D), k=40)
+
+
+def shards_runs(dev, n, mesh=None):
+    """Phase 18e's runs at ``n`` on ``dev``, split over ``mesh`` if given:
+    the block-ELL Ros2 sweep (phase 4's configuration: bs = 128, 16 Penzl
+    shifts, capacity 160, 3 steps), a `gram` compression and the
+    `GMRES_KRYLOV` solve of Aᵀ − Eᵀ (DIA).  Returns numpy results."""
+    X, Ks, adi, kry = dryrun.bell_sweep(
+        dev, n, mesh, "ros2", bs=BS, nsteps=SMALL_STEPS, capacity=SMALL_CAPACITY,
+        cfg=dataclasses.astuple(SWEEP_CFG), nshifts=16)
+    Y = dryrun.compress_sharded(mesh, small_factor(n))
+    E, A, _, _ = rail_surrogate(n)
+    W = torch.as_tensor(np.random.default_rng(14).standard_normal((n, 7)))
+    x, kry_g = dryrun.solve_sharded(mesh, shifted_dia(*dia_pencil(E, A, device=dev), -1.0),
+                                    W, GMRES_KRYLOV)
+    dense = lambda Z: (Z.L @ Z.D @ Z.L.T).numpy()  # noqa: E731
+    return (dense(X), [K.numpy() for K in Ks], adi, kry, dense(Y), Y.k, x.numpy(), kry_g)
+
+
+def shards_rank(dev, n):
+    """Phase 18e's rank: `shards_runs` over the group's ranks."""
+    return shards_runs(dev, n, make_mesh(device=dev.type))
+
+
+def phase_shards_cpu():
+    """Phase 18e: `shards_runs` at n=1357 over `SHARDED_CPU_RANKS` gloo
+    ranks on the host's CPU (11 block rows split 3/3/3/2, a halo of 1 block
+    row) against one process: equal ADI and Krylov counts (within
+    `KRYLOV_REL_TOL`), every K, the LDLᵀs and the GMRES solution within
+    `SHARDED_TOL`."""
+    tag = f"[shards n={N_SHARDED_CPU}, {SHARDED_CPU_RANKS} gloo ranks]"
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        return fn(*args), time.perf_counter() - t
+
+    # The ranks mostly wait on their collectives: the one-process runs go
+    # meanwhile.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ranks = pool.submit(timed, dryrun.run_ranks, shards_rank, SHARDED_CPU_RANKS, "cpu",
+                            (N_SHARDED_CPU,))
+        ref, wall_ref = timed(shards_runs, torch.device("cpu"), N_SHARDED_CPU)
+        got, wall = ranks.result()
+    X, Ks, adi, kry, Y, k, x, kry_g = got
+    Xr, Ksr, adir, kryr, Yr, kr, xr, kry_gr = ref
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    log(f"{tag}: {wall:.3f} s (spawn included), one process {wall_ref:.3f} s, both at once")
+    hold_twins(f"{tag} block-ELL Ros2 sweep", {"ADI": (adi, adir), "Krylov": (kry, kryr)},
+               {"LDLᵀ": rel(X, Xr), "worst K": max(rel(a, b) for a, b in zip(Ks, Ksr))})
+    hold_twins(f"{tag} gram compression", {"rank": (k, kr)}, {"LDLᵀ": rel(Y, Yr)})
+    hold_twins(f"{tag} GMRES", {"Krylov": (kry_g, kry_gr)}, {"solution": rel(x, xr)})
+
+
+def phase_shards(E, A, B, C, dev, k1_launches, k2_launches):
+    """Phase 18: 18a–d on the card over a world-size-1 NCCL group, then
+    18e on the host's CPU.  Adds the launches per path to ``k1_launches``
+    and ``k2_launches``; returns the kernels' max abs errors."""
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, timeout=GROUP_TIMEOUT)
+    try:
+        mesh = make_mesh(1)
+        launches, errs, E_b = phase_shards_bell(E, A, B, C, dev, mesh)
+        k2_launches["sharded_bell_ros2"] = launches
+        l1, l2, e = phase_shards_dia(E, A, B, C, dev, mesh, E_b)
+        del E_b
+        k1_launches.update(l1)
+        k2_launches.update(l2)
+        for kern, err in e.items():
+            errs[kern] = max(errs.get(kern, 0.0), err)
+    finally:
+        dist.destroy_process_group()
+    log("[shards] 1 rank over NCCL: the halo exchanges have no neighbour and send nothing")
+    phase_shards_cpu()
+    log(f"[shards] phase 18 took {time.perf_counter() - t0:.1f} s; {card_line()}")
+    return errs
+
+
 def checked(tag, kern, run):
     """``run()``, a full-size main path that returns its launches, under a
     `ProductLog`; then the kernels against their plain versions at every
@@ -2593,7 +2882,7 @@ def main() -> int:
                     help="build the kernels and run only the parareal and sharded-product "
                          "phase 16")
     ap.add_argument("--sharded-only", action="store_true",
-                    help="build the kernels and run only the row-sharded steps, phase 17")
+                    help="build the kernels and run only the row-sharded phases 17 and 18")
     args = ap.parse_args()
     only = args.newton_only or args.host_only or args.dense_only or args.gmres_only \
         or args.mixed_only or args.parareal_only or args.sharded_only
@@ -2626,9 +2915,10 @@ def main() -> int:
             phase_parareal(E, A, B, C, dev, k1_launches, k2_launches)
             log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
         elif args.sharded_only:
-            k1_launches = {}
+            k1_launches, k2_launches = {}, {}
             phase_sharded(E, A, B, C, dev, k1_launches)
-            log(f"[launches] K1 {k1_launches}")
+            phase_shards(E, A, B, C, dev, k1_launches, k2_launches)
+            log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
         elif args.gmres_only or args.mixed_only:
             k1_launches, k2_launches = {}, {}
             if args.gmres_only:
@@ -2679,6 +2969,9 @@ def main() -> int:
             k1_err = max(k1_err, errs["K1"])
             k2_err = max(k2_err, errs["K2"])
             k1_err = max(k1_err, phase_sharded(E, A, B, C, dev, k1_launches))
+            errs = phase_shards(E, A, B, C, dev, k1_launches, k2_launches)
+            k1_err = max(k1_err, errs.get("K1", 0.0))
+            k2_err = max(k2_err, errs.get("K2", 0.0))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -190,9 +190,10 @@ def sparse_shift_ops_from_numpy(cols, data, diag, prec_inv, n, bs, cfg,
     """`SparseShiftOps` from the leaves of the JAX package's
     ``SparseShiftOps`` that the port stores (its ``cols_t``/``data_t`` are
     left out, as `models.compiled.build_sparse_shift_ops` leaves them)."""
-    return SparseShiftOps(cols=_t(np.asarray(cols, np.int32), device),
-                          data=_t(data, device), diag_=_t(diag, device),
-                          prec_inv=_t(prec_inv, device), n=int(n), bs=int(bs),
+    data, diag = _t(data, device), _t(diag, device)
+    base = BellOp(cols=_t(np.asarray(cols, np.int32), device), data=data[0], cols_t=None,
+                  data_t=None, diag_=diag[0], n=int(n), bs=int(bs))
+    return SparseShiftOps(data=data, diag_=diag, prec_inv=_t(prec_inv, device), base=base,
                           cfg=krylov_from(cfg))
 
 

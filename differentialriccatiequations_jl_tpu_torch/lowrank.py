@@ -16,7 +16,8 @@ is plain slicing.  `lr_compress` reads the new rank back from the device
 
 Under a mesh (`parallel.mesh.use_mesh`) ``L`` is split by rows over its
 ranks and ``D`` is whole on each: `lr_norm` and `lr_dot` all-reduce their
-small Gram products, and `lr_compress` orthogonalizes by a TSQR.
+small Gram products, and `lr_compress` orthogonalizes by a TSQR or by the
+Cholesky factor of an all-reduced Gram matrix.
 """
 
 from __future__ import annotations
@@ -243,6 +244,27 @@ def _tsqr(L: torch.Tensor):
     return Q_l @ Q_s[off:off + m_l], R
 
 
+def _gram(L: torch.Tensor):
+    """``(LᵀL, n)`` of ``L`` split by rows over the active mesh: both in
+    one all-reduce, the global row count ``n`` as a device scalar (no host
+    read).  Without a mesh ``LᵀL`` and the host int ``L.shape[0]``."""
+    if active_mesh() is None:
+        return L.T @ L, L.shape[0]
+    r = L.shape[1]
+    buf = torch.cat([L.T @ L, L.new_zeros((1, r))])
+    buf[r, 0] = L.shape[0]
+    buf = row_allreduce(buf)
+    return buf[:r], buf[r, 0]
+
+
+def _ridge_factor(n, dtype: torch.dtype):
+    """``1 + √n`` as the gram route scales its ridge: in double, then in
+    ``dtype`` (a host ``n``'s rounding, for a device scalar too)."""
+    if isinstance(n, int):
+        return 1.0 + n ** 0.5
+    return (1.0 + n.double().sqrt()).to(dtype)
+
+
 def lr_compress(X: LowRank, r_out: int | None = None,
                 method: str | None = None) -> LowRank:
     """Column compression: orthogonalization + eigendecomposition + cut.
@@ -257,10 +279,10 @@ def lr_compress(X: LowRank, r_out: int | None = None,
     sort, as ``jnp.argsort``).  Reads the new rank back to the host: one
     sync per compression.
 
-    Under a mesh, ``L`` split by rows: the QR is a TSQR (`_tsqr`), so every
-    rank computes the same eigendecomposition, cut and rank from the same
-    small matrix, and keeps its rows of the new ``L``.  The ``gram`` route
-    is not ported to a mesh.
+    Under a mesh, ``L`` split by rows: the QR is a TSQR (`_tsqr`), the Gram
+    matrix an all-reduce (`_gram`), so every rank computes the same
+    Cholesky factor (the ridge retry included), eigendecomposition, cut and
+    rank from the same small matrix, and keeps its rows of the new ``L``.
     """
     L, D = X.L, X.D
     n, r = L.shape
@@ -275,14 +297,12 @@ def lr_compress(X: LowRank, r_out: int | None = None,
         m = R.shape[0]
         S = R @ D @ R.T
     elif method == "gram":
-        if active_mesh() is not None:
-            raise NotImplementedError("the gram compression over a mesh is not ported")
         m = r
         Q = None
-        M = L.T @ L
+        M, n = _gram(L)
         maxdiag = torch.diagonal(M).max()
         flat = torch.clamp(10.0 * finfo.eps * maxdiag, min=finfo.tiny)
-        ridge = torch.clamp((1.0 + n ** 0.5) * flat, min=finfo.tiny)
+        ridge = torch.clamp(_ridge_factor(n, M.dtype) * flat, min=finfo.tiny)
         eye = torch.eye(r, dtype=M.dtype, device=M.device)
         Lc0, info0 = torch.linalg.cholesky_ex(M + flat * eye)
         Lc1, _ = torch.linalg.cholesky_ex(M + ridge * eye)

@@ -22,18 +22,21 @@ flow:
 * the ADI convergence test ``res > abstol`` syncs once per ADI iteration,
   and each Krylov iteration syncs once (``ops.blocklinear``).
 
-**Row-sharded operands** (ROADMAP item 10b): `ros1_step_compiled`, the
-Ros1 sweep, `adi_compiled` and `_newton_step_compiled` also run on DIA
-operators split by rows over a 1-D mesh (`parallel.mesh.shard_operator`
-with ``block=PREC_BS``), ``X`` from `parallel.mesh.shard_lowrank`, ``B``
-split by rows and ``C`` by columns.  The sharded operands select the path,
-as the JAX package's ``with mesh:`` does: each function enters its
-operator's mesh (`parallel.mesh.on_operator_mesh`), every contraction over
-n is all-reduced, `lr_compress` is a TSQR, and the shifted operators and
-block inverses are the rank's own rows (`DiaShiftOps.base`).  Every rank
-takes the same host branches, from all-reduced or redundantly computed
-values.  ``K`` comes out split by columns (each rank's columns, a
-deliberate difference from the JAX package's global array).
+**Row-sharded operands** (ROADMAP items 10b and 10c): the Ros1 and Ros2
+steps and sweeps, `adi_compiled` and `_newton_step_compiled` also run on
+operators split by rows over a 1-D mesh (`parallel.mesh.shard_operator`:
+DIA with ``block=PREC_BS``, block-ELL in its ``bs``-row blocks), ``X``
+from `parallel.mesh.shard_lowrank`, ``B`` split by rows and ``C`` by
+columns, in the same blocks.  The sharded operands select the path, as the
+JAX package's ``with mesh:`` does: each function enters its operator's
+mesh (`parallel.mesh.on_operator_mesh`), every contraction over n is
+all-reduced, `lr_compress` is a TSQR (or an all-reduced Gram matrix, its
+``gram`` route for f32 factors), and the shifted operators and block
+inverses are the rank's own rows (`DiaShiftOps.base`,
+`SparseShiftOps.base`), an f32 refined core included.  Every rank takes
+the same host branches, from all-reduced or redundantly computed values.
+``K`` comes out split by columns (each rank's columns, a deliberate
+difference from the JAX package's global array).
 
 Supported shift buffers: all-real 1-D ``(ns,)`` and the pair encoding
 ``(ns, 2)`` of ``(Re μ, |Im μ|)`` rows (`pair_encode_shifts`), whose
@@ -284,29 +287,38 @@ class SparseShiftOps:
 
     Unlike the JAX package, the shifted operators' transposed structure
     (``cols_t``, ``data_t``) is not stored: no Krylov product reads it, and
-    at n = 79841 with 16 shifts it would double the 9 GB of f64 blocks."""
+    at n = 79841 with 16 shifts it would double the 9 GB of f64 blocks.
 
-    cols: torch.Tensor  # (nb, K): block pattern of the shifted operators
-    data: torch.Tensor  # (ns, nb, K, bs, bs)
-    diag_: torch.Tensor  # (ns, n)
+    ``base`` is slot 0's operator and each slot's is it with the slot's
+    data and diagonal (`slot`), so from row shards
+    (`parallel.sharded_ops.ShardedBellOp`) the slots hold the rank's block
+    rows (and the shard's ``2H`` zero block rows after them), their
+    block-Jacobi inverses the rank's diagonal blocks, and the Krylov
+    solvers multiply shards like it."""
+
+    data: torch.Tensor  # (ns, nb + 2H, K, bs, bs); H = 0 unsharded
+    diag_: torch.Tensor  # (ns, n or the rank's nl)
     prec_inv: torch.Tensor  # (ns, nb, bs, bs) block-Jacobi inverses
-    n: int
-    bs: int
+    base: BellOp  # slot 0's operator: pattern, sizes (and rows, halo, mesh)
     cfg: Krylov
 
+    def slot(self, idx: int) -> BellOp:
+        """Slot ``idx``'s shifted operator."""
+        return dataclasses.replace(self.base, data=self.data[idx], diag_=self.diag_[idx])
+
     def core_solver(self, idx: int) -> KrylovSolver:
-        op = BellOp(cols=self.cols, data=self.data[idx], cols_t=None,
-                    data_t=None, diag_=self.diag_[idx], n=self.n, bs=self.bs)
-        return KrylovSolver(op=op, prec=self.prec_inv[idx], cfg=self.cfg)
+        return KrylovSolver(op=self.slot(idx), prec=self.prec_inv[idx], cfg=self.cfg)
 
 
 def build_sparse_shift_ops(E: BellOp, A0: BellOp, shifts,
                            krylov_cfg: Krylov | None = None) -> SparseShiftOps:
     """Assemble the per-shift shifted block-ELL operators ``A₀ᵀ + μₛEᵀ`` and
     their block-Jacobi inverses.  ``E``/``A0``: pattern-sharing `BellOp`s
-    (see `ops.sparse.bell_pencil`); ``shifts``: real host array, 1-D or the
-    pair encoding with every ``Im μ = 0``.  ``krylov_cfg`` defaults to CG on
-    the negated operator, ``tol = 10·eps``, ``maxiter = 400``.
+    (see `ops.sparse.bell_pencil`), or row shards of them
+    (`parallel.mesh.shard_operator`): then every table holds the rank's
+    block rows; ``shifts``: real host array, 1-D or the pair encoding with
+    every ``Im μ = 0``.  ``krylov_cfg`` defaults to CG on the negated
+    operator, ``tol = 10·eps``, ``maxiter = 400``.
 
     The operators are built one shift at a time into preallocated tensors
     (``μ·Eᵀ`` first, then ``+ A₀ᵀ``, the JAX package's rounding), so the
@@ -324,21 +336,20 @@ def build_sparse_shift_ops(E: BellOp, A0: BellOp, shifts,
                             preconditioner="block_jacobi", negate=True)
     At, Et = A0.adjoint(), E.adjoint()
     ns = shifts.shape[0]
-    nb, K, bs, _ = At.data.shape
     kw = dict(dtype=At.dtype, device=At.device)
-    data = torch.empty((ns, nb, K, bs, bs), **kw)
-    diag = torch.empty((ns, At.n), **kw)
-    inv = torch.empty((ns, nb, bs, bs), **kw)
+    data = torch.empty((ns,) + tuple(At.data.shape), **kw)
+    diag = torch.empty((ns,) + tuple(At.diag_.shape), **kw)
+    inv = torch.empty((ns, At.nb, At.bs, At.bs), **kw)
+    ops = SparseShiftOps(data=data, diag_=diag, prec_inv=inv,
+                         base=dataclasses.replace(At, data=data[0], cols_t=None, data_t=None,
+                                                  diag_=diag[0]), cfg=krylov_cfg)
     for s, mu in enumerate(shifts.tolist()):
         torch.mul(Et.data, mu, out=data[s])
         data[s] += At.data
         torch.mul(Et.diag_, mu, out=diag[s])
         diag[s] += At.diag_
-        F = BellOp(cols=At.cols, data=data[s], cols_t=None, data_t=None,
-                   diag_=diag[s], n=At.n, bs=At.bs)
-        inv[s] = block_jacobi_inverses(F.diag_blocks())
-    return SparseShiftOps(cols=At.cols, data=data, diag_=diag, prec_inv=inv,
-                          n=At.n, bs=At.bs, cfg=krylov_cfg)
+        inv[s] = block_jacobi_inverses(ops.slot(s).diag_blocks())
+    return ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -727,6 +738,7 @@ def build_step_shift_solvers(E, F_base, shifts, krylov_cfg: Krylov | None = None
 _ROS2_GAMMA = 1.0 + 1.0 / math.sqrt(2.0)
 
 
+@on_operator_mesh
 def ros2_step_compiled(E, A, B, C, X: LowRank, tau: float, shifts,
                        abstol: float, cfg: CompiledConfig, shift_lus):
     """One full LRSIF Ros2 (2-stage Rosenbrock) GDRE time step: the stage-1
@@ -815,8 +827,9 @@ def solve_gdre_ros1_compiled(prob, *, dt: float, shifts, cfg: CompiledConfig,
     ``res = None``), then after step ``i``.
     The solution carries ``adi_iters`` (total) and ``adi_res_max``.
 
-    On a row-sharded problem (DIA shards split in ``PREC_BS``-row blocks,
-    ``X0`` and ``B`` split by rows, ``C`` by columns) every rank calls this
+    On a row-sharded problem (DIA shards split in ``PREC_BS``-row blocks or
+    block-ELL shards in ``bs``-row blocks, ``X0`` and ``B`` split by rows
+    and ``C`` by columns in the same blocks) every rank calls this
     with its shards; each ``K`` of the solution is then the rank's column
     shard (gather ``Kᵀ`` with `parallel.mesh.unshard_tall`), each ``X`` its
     row shard."""

@@ -100,11 +100,12 @@ def solve_gdre_lowrank_ros1(prob: GDREProblem, alg: Ros1, *, dt: float,
 
 def _ros2_rhs1(E, A, B, C, X: LowRank) -> LowRank:
     """Ros2 stage-1 right-hand side ``[Cᵀ AᵀL EᵀL]`` with the indefinite
-    3×3 block inner factor, compressed."""
+    3×3 block inner factor, compressed (``BᵀL`` all-reduced over the active
+    mesh)."""
     q = C.shape[0]
     L, D = X.L, X.D
     r = L.shape[1]
-    BtLD = (B.T @ L) @ D
+    BtLD = row_allreduce(B.T @ L) @ D
     G = torch.cat([C.T, A.tmm(L), E.tmm(L)], dim=1)
     dim = q + 2 * r
     S = G.new_zeros((dim, dim))
@@ -116,9 +117,10 @@ def _ros2_rhs1(E, A, B, C, X: LowRank) -> LowRank:
 
 
 def _ros2_rhs2(E, B, K1: LowRank, tau: float, gamma: float) -> LowRank:
-    """Ros2 stage-2 right-hand side built from the stage-1 solution."""
+    """Ros2 stage-2 right-hand side built from the stage-1 solution
+    (``BᵀT₁`` all-reduced over the active mesh)."""
     T1, D1 = K1.L, K1.D
-    BtT1D1 = (B.T @ T1) @ D1
+    BtT1D1 = row_allreduce(B.T @ T1) @ D1
     G2 = E.tmm(T1)
     S2 = (tau ** 2) * (BtT1D1.T @ BtT1D1) + (2.0 - 1.0 / gamma) * D1
     return LowRank(L=G2, D=S2, k=K1.k)

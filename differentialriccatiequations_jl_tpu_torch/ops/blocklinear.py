@@ -31,12 +31,13 @@ Each iteration's convergence test reads one boolean back to the host
 step's breakdown test); `krylov_iterations` counts them and
 `krylov_solves` the solves.
 
-Over a row-sharded operator (`parallel.sharded_ops.ShardedDiaOp`, under
-its mesh: `parallel.mesh.use_mesh`) each rank holds its rows of every
-block, and every inner product, the right-hand side's norm and the SMW's
-small systems are all-reduced over the ranks (`row_allreduce`), so every
-rank reads the same values and takes the same branches.  CG and BiCGStab
-run so; GMRES raises.
+Over a row-sharded operator (`parallel.sharded_ops.ShardedDiaOp` or
+`ShardedBellOp`, under its mesh: `parallel.mesh.use_mesh`) each rank holds
+its rows of every block, and every inner product, the right-hand side's
+norm, GMRES's projections (one all-reduce of all of an Arnoldi step's) and
+the SMW's small systems are all-reduced over the ranks (`row_allreduce`),
+so every rank reads the same values and takes the same branches: CG,
+BiCGStab, GMRES and the refined core alike.
 """
 
 from __future__ import annotations
@@ -293,7 +294,7 @@ def _gmres_cycle(A, M, b, x, unit_residual, residual_norm, restart):
     for k in range(restart):
         v = M(A(V[k]))
         _, v_norm_0 = _safe_normalize(v)
-        h = Vf.conj() @ v.reshape(-1)
+        h = row_allreduce(Vf.conj() @ v.reshape(-1))  # one all-reduce: k + 1 dots
         v = v - (h @ Vf).view(v.shape)
         unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
         V[k + 1] = unit_v
@@ -311,12 +312,21 @@ def _gmres_cycle(A, M, b, x, unit_residual, residual_norm, restart):
     return (x,) + _safe_normalize(M(b - A(x)))
 
 
+def _numel(b: torch.Tensor) -> int:
+    """Entries of ``b`` over the ranks of the active mesh (one all-reduce
+    and a host read under one)."""
+    if active_mesh() is None:
+        return b.numel()
+    n = torch.tensor(float(b.numel()), dtype=torch.float64, device=b.device)
+    return int(row_allreduce(n))
+
+
 def _gmres(A, b, *, maxiter, tol, atol, restart, M):
     """Left-preconditioned restarted GMRES as ``jax.scipy.sparse.linalg.gmres``
     with ``solve_method="batched"``: the whole block ``b`` is one vector;
     ``maxiter`` counts restart cycles; the stopping rule is
     ``‖M(b − Ax)‖ ≤ max(tol·‖b‖, atol)``."""
-    restart = min(restart, b.numel())
+    restart = min(restart, _numel(b))
     bound = torch.clamp(tol * _norm(b), min=atol)
     x = torch.zeros_like(b)
     unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
@@ -357,8 +367,6 @@ class KrylovSolver:
         global krylov_solves
         krylov_solves += 1
         cfg = self.cfg
-        if cfg.method == "gmres" and active_mesh() is not None:
-            raise NotImplementedError("GMRES over row-sharded operators is not ported")
         # Normalize the RHS (scale invariance of the stopping rule).
         nrm = row_norm(B)
         scale = torch.where(nrm > 0, nrm, torch.ones_like(nrm)).to(B.dtype)

@@ -69,6 +69,12 @@ class BellOp(complex_route.SplitStorage):
     def diag(self) -> torch.Tensor:
         return self.diag_
 
+    def same_pattern(self, other: "BellOp") -> bool:
+        """Whether ``other`` can combine with this operator block by block
+        (`bell_lin_comb`): of the same kind, block pattern and sizes."""
+        return (type(other) is type(self) and self.cols.shape == other.cols.shape
+                and self.n == other.n and self.bs == other.bs)
+
     def diag_blocks(self) -> torch.Tensor:
         """(nb, bs, bs) diagonal blocks — block-Jacobi preconditioner data.
 
@@ -97,8 +103,8 @@ class BellOp(complex_route.SplitStorage):
         return _bell_mm(self, X, t=True)
 
     def adjoint(self) -> "BellOp":
-        return BellOp(cols=self.cols_t, data=self.data_t, cols_t=self.cols,
-                      data_t=self.data, diag_=self.diag_, n=self.n, bs=self.bs)
+        return dataclasses.replace(self, cols=self.cols_t, data=self.data_t,
+                                   cols_t=self.cols, data_t=self.data)
 
     def to_dense(self) -> torch.Tensor:
         nb, K, bs, _ = self.data.shape
@@ -209,29 +215,27 @@ def bell_pencil(E, A, bs: int = 128, dtype: torch.dtype | None = None, device=No
 # --- algebra on shared patterns ----------------------------------------------
 
 
-def _same_pattern(a: BellOp, b: BellOp) -> bool:
-    return a.cols.shape == b.cols.shape and a.n == b.n and a.bs == b.bs
-
-
 def _combine(a, c, b):
     """``a + c·b``, or ``None`` where either side stores nothing."""
     return None if a is None or b is None else a + c * b
 
 
 def bell_lin_comb(A: BellOp, c, E: BellOp) -> BellOp:
-    """``A + c·E`` for pattern-sharing operators (see `bell_pencil`)."""
-    if not _same_pattern(A, E):
+    """``A + c·E`` for pattern-sharing operators (see `bell_pencil`), row
+    shards of them (`parallel.sharded_ops.ShardedBellOp`) included: the
+    result is ``A`` with the combined data."""
+    if not A.same_pattern(E):
         raise ValueError("bell_lin_comb requires pattern-sharing operators "
                          "(build them with bell_pencil)")
-    return BellOp(cols=A.cols, data=_combine(A.data, c, E.data),
-                  cols_t=A.cols_t, data_t=_combine(A.data_t, c, E.data_t),
-                  diag_=A.diag_ + c * E.diag_, n=A.n, bs=A.bs)
+    return dataclasses.replace(A, data=_combine(A.data, c, E.data),
+                               data_t=_combine(A.data_t, c, E.data_t),
+                               diag_=A.diag_ + c * E.diag_)
 
 
 def bell_scale(A: BellOp, c) -> BellOp:
-    return BellOp(cols=A.cols, data=c * A.data, cols_t=A.cols_t,
-                  data_t=None if A.data_t is None else c * A.data_t,
-                  diag_=c * A.diag_, n=A.n, bs=A.bs)
+    return dataclasses.replace(A, data=c * A.data,
+                               data_t=None if A.data_t is None else c * A.data_t,
+                               diag_=c * A.diag_)
 
 
 def shifted_bell(E: BellOp, A: BellOp, mu) -> BellOp:

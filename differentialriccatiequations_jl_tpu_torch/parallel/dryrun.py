@@ -9,7 +9,7 @@ tiny shapes:
 
 * holds the row-sharded DIA product (`sharded_ops.ShardedDiaOp`, ``mm`` and
   ``tmm``, halo exchange + K1) and the row-sharded block-ELL product
-  (`sharded_ops.ShardedBellSpmm`, halo exchange + K2) against the unsharded
+  (`sharded_ops.ShardedBellOp`, halo exchange + K2) against the unsharded
   ones;
 * runs the JAX dry run's compiled Ros1 step (the pair-encoded buffer
   ``[−0.5, −1 ± 0.5i, −2]``) and its compiled Kleinman–Newton step (real
@@ -24,8 +24,15 @@ tiny shapes:
 The steps run at n = 256·W, where the JAX dry run takes 64·W: the compiled
 steps split whole 128-row blocks over the ranks (so that each rank's
 block-Jacobi blocks are the global ones), and 64·W rows cannot be split so.
-`ros1_sweep` is the JAX package's sharded-sweep test configuration
-(``tests/test_sharded_gdre.py:140-153``), for the tests and the smoke run.
+
+For the tests and the smoke run: `ros1_sweep` is the JAX package's
+sharded-sweep test configuration (``tests/test_sharded_gdre.py:140-153``);
+`bell_sweep` (block-ELL, Ros1 or Ros2) and `ros2_sweep` (DIA) run
+``tests/test_torch_ros2.py``'s configuration (`SWEEP`) through
+`run_sweep`, which shards any pencil in its blocks (`shard_pencil`:
+``bs``-row blocks for block-ELL, ``PREC_BS`` for DIA); `solve_sharded`
+and `compress_sharded` run one block solve or `gram` compression on
+shards.
 """
 
 from __future__ import annotations
@@ -166,28 +173,39 @@ def _check_products(mesh, dev, n, bs):
 # --- the row-sharded compiled steps -------------------------------------------
 
 
-def shard_pencil(mesh, E_op, A_op, B, C):
-    """``E``, ``A`` split in ``PREC_BS``-row blocks, ``B`` split by rows and
-    ``C`` by columns."""
+def shard_block(op) -> int:
+    """The rows a rank's shard of ``op`` holds whole blocks of: a block-ELL
+    operator's ``bs``, ``PREC_BS`` for a DIA one (so that its block-Jacobi
+    blocks are the global ones)."""
     from ..models.compiled import PREC_BS
+    from ..ops.sparse import BellOp
+
+    return op.bs if isinstance(op, BellOp) else PREC_BS
+
+
+def shard_pencil(mesh, E_op, A_op, B, C):
+    """``E``, ``A`` split in whole blocks (`shard_block`), ``B`` split by
+    rows and ``C`` by columns in the same blocks."""
     from .mesh import shard_operator, shard_tall
 
-    return (shard_operator(mesh, E_op, block=PREC_BS),
-            shard_operator(mesh, A_op, block=PREC_BS),
-            shard_tall(mesh, B, PREC_BS), shard_tall(mesh, C.T, PREC_BS).T)
+    block = shard_block(E_op)
+    return (shard_operator(mesh, E_op, block=block), shard_operator(mesh, A_op, block=block),
+            shard_tall(mesh, B, block), shard_tall(mesh, C.T, block).T)
 
 
-def gather_state(mesh, X, K, n):
+def gather_state(mesh, X, K, n, block=None):
     """The whole ``X`` (its ``L`` gathered) and ``K`` (its columns
-    gathered) of a row-sharded step; as they are without a mesh."""
+    gathered) of a row-sharded step split in ``block``-row blocks (default
+    ``PREC_BS``); as they are without a mesh."""
     from ..lowrank import LowRank
     from ..models.compiled import PREC_BS
     from .mesh import unshard_tall
 
     if mesh is None:
         return X, K
-    return (LowRank(L=unshard_tall(mesh, X.L, n, PREC_BS), D=X.D, k=X.k),
-            unshard_tall(mesh, K.T.contiguous(), n, PREC_BS).T)
+    block = PREC_BS if block is None else block
+    return (LowRank(L=unshard_tall(mesh, X.L, n, block), D=X.D, k=X.k),
+            unshard_tall(mesh, K.T.contiguous(), n, block).T)
 
 
 def _counted(run):
@@ -199,22 +217,28 @@ def _counted(run):
     return out, blocklinear.krylov_iterations - k0
 
 
-def _dryrun_pencil(dev, n):
-    """The JAX dry run's pencil and start: the Rail surrogate, X0 =
-    lowrank(E⁻¹Cᵀ, 0.01·I) at capacity 64, f64."""
+def rail_x0(E, C, dev, capacity: int):
+    """``X0 = lowrank(E⁻¹Cᵀ, 0.01·I)`` at ``capacity`` on ``dev``, f64."""
     import scipy.sparse.linalg as spla
 
     from ..lowrank import lowrank, lr_with_capacity
+
+    L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
+    return lr_with_capacity(lowrank(torch.as_tensor(L0, device=dev),
+                                    0.01 * torch.eye(C.shape[0], dtype=torch.float64,
+                                                     device=dev)), capacity)
+
+
+def _dryrun_pencil(dev, n):
+    """The JAX dry run's pencil and start: the Rail surrogate, X0 =
+    lowrank(E⁻¹Cᵀ, 0.01·I) at capacity 64, f64."""
     from ..ops.dia import dia_pencil
     from ..utils.testmat import rail_surrogate
 
     E, A, B, C = rail_surrogate(n)
     E_op, A_op = dia_pencil(E, A, device=dev)
-    L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
-    X0 = lr_with_capacity(lowrank(torch.as_tensor(L0, device=dev),
-                                  0.01 * torch.eye(C.shape[0], dtype=torch.float64,
-                                                   device=dev)), 64)
-    return E_op, A_op, torch.as_tensor(B, device=dev), torch.as_tensor(C, device=dev), X0
+    return (E_op, A_op, torch.as_tensor(B, device=dev), torch.as_tensor(C, device=dev),
+            rail_x0(E, C, dev, 64))
 
 
 def ros1_step_sharded(dev, n, mesh=None):
@@ -272,42 +296,133 @@ def newton_step_sharded(dev, n, mesh=None):
     return (*gather_state(mesh, X, feedback_K(E, B, X), n), iters, float(ares), kry)
 
 
+def run_sweep(method, E_op, A_op, B, C, X0, shifts, mesh=None, *, tau, nsteps, cfg,
+              capacity, abstol=None, observer=None):
+    """``solve_gdre_ros{1,2}_compiled`` (``method`` "ros1" or "ros2") from
+    t = 4500 in ``nsteps`` steps of ``τ`` on whole operands, split over
+    ``mesh`` first if given (`shard_pencil`, ``X0`` in the same blocks).
+    Returns (the final X and every K, gathered; ADI and Krylov
+    iterations)."""
+    from ..models.compiled import solve_gdre_ros1_compiled, solve_gdre_ros2_compiled
+    from ..models.problems import GDREProblem
+    from .mesh import shard_lowrank
+
+    n, block = E_op.n, shard_block(E_op)
+    if mesh is not None:
+        E_op, A_op, B, C = shard_pencil(mesh, E_op, A_op, B, C)
+        X0 = shard_lowrank(mesh, X0, block)
+    prob = GDREProblem(E_op, A_op, B, C, X0, (4500.0, 4500.0 - nsteps * tau))
+    solve = {"ros1": solve_gdre_ros1_compiled, "ros2": solve_gdre_ros2_compiled}[method]
+    sol, kry = _counted(lambda: solve(prob, dt=-tau, shifts=shifts, cfg=cfg,
+                                      capacity=capacity, abstol=abstol, observer=observer))
+    X = gather_state(mesh, sol.X[-1], sol.K[-1], n, block)[0]
+    Ks = [gather_state(mesh, sol.X[-1], K, n, block)[1] for K in sol.K]
+    return X, Ks, sol.adi_iters, kry
+
+
 def ros1_sweep(dev, n, mesh=None):
     """The JAX package's sharded-sweep test (``tests/test_sharded_gdre.py:
     140-153``) at ``n``: the Rail surrogate, 8 real Penzl shifts
     ``heuristic_shifts_host(E, A, 8, 10, 10)``, X0 = lowrank(E⁻¹Cᵀ, 0.01·I)
     at capacity 96, `CompiledConfig(60, 10, 48)`, tspan (4500, 4440),
-    dt = −20, abstol 1e-12, on operands split over ``mesh`` (in one process
-    without one).  Returns (the final X and every K, gathered; ADI and
-    Krylov iterations)."""
-    import scipy.sparse.linalg as spla
-
-    from ..lowrank import lowrank, lr_with_capacity
-    from ..models.compiled import PREC_BS, CompiledConfig, solve_gdre_ros1_compiled
-    from ..models.problems import GDREProblem
+    dt = −20, abstol 1e-12, on DIA operands split over ``mesh`` (in one
+    process without one).  Returns (the final X and every K, gathered; ADI
+    and Krylov iterations)."""
+    from ..models.compiled import CompiledConfig
     from ..models.shifts import heuristic_shifts_host
     from ..ops.dia import dia_pencil
     from ..utils.testmat import rail_surrogate
-    from .mesh import shard_lowrank
 
     E, A, B, C = rail_surrogate(n)
     shifts = np.asarray([s.real for s in heuristic_shifts_host(E, A, 8, 10, 10)])
-    L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
-    X0 = lr_with_capacity(lowrank(torch.as_tensor(L0, device=dev),
-                                  0.01 * torch.eye(C.shape[0], dtype=torch.float64,
-                                                   device=dev)), 96)
     E_op, A_op = dia_pencil(E, A, device=dev)
-    B, C = torch.as_tensor(B, device=dev), torch.as_tensor(C, device=dev)
+    return run_sweep("ros1", E_op, A_op, torch.as_tensor(B, device=dev),
+                     torch.as_tensor(C, device=dev), rail_x0(E, C, dev, 96), shifts, mesh,
+                     tau=20.0, nsteps=3, cfg=CompiledConfig(60, 10, 48), capacity=96,
+                     abstol=1e-12)
+
+
+#: The configuration of `bell_sweep` and `ros2_sweep`, ``tests/test_torch_
+#: ros2.py``'s: τ = 10, 3 steps, capacity 64, `CompiledConfig(60, 10, 16)`,
+#: 8 Penzl shifts of the step's pencil; block-ELL in 16-row blocks (6 block
+#: rows at its n = 96).
+SWEEP = dict(bs=16, tau=10.0, nsteps=3, capacity=64, cfg=(60, 10, 16), nshifts=8)
+
+
+def sweep_shifts(E, A, method: str, tau: float, nshifts: int) -> np.ndarray:
+    """The real parts of ``nshifts`` Penzl shifts (`heuristic_shifts_host`,
+    20 + 20 Arnoldi steps) of the sweep's pencil ``(E, A − E/(2τ))`` (Ros1)
+    or ``(E, γτA − E/2)`` (Ros2)."""
+    import scipy.sparse as sp
+
+    from ..models.compiled import _ROS2_GAMMA
+    from ..models.shifts import heuristic_shifts_host
+
+    F = _ROS2_GAMMA * tau * A - 0.5 * E if method == "ros2" else A - E / (2.0 * tau)
+    return np.asarray([s.real for s in heuristic_shifts_host(E, sp.csr_matrix(F), nshifts,
+                                                            20, 20)])
+
+
+def _rail_sweep(dev, n, mesh, method, fmt, config):
+    from ..models.compiled import CompiledConfig
+    from ..ops.dia import dia_pencil
+    from ..ops.sparse import bell_pencil
+    from ..utils.testmat import rail_surrogate
+
+    c = {**SWEEP, **config}
+    E, A, B, C = rail_surrogate(n)
+    shifts = sweep_shifts(E, A, method, c["tau"], c["nshifts"])
+    E_op, A_op = (bell_pencil(E, A, bs=c["bs"], device=dev) if fmt == "bell"
+                  else dia_pencil(E, A, device=dev))
+    return run_sweep(method, E_op, A_op, torch.as_tensor(B, device=dev),
+                     torch.as_tensor(C, device=dev), rail_x0(E, C, dev, c["capacity"]), shifts,
+                     mesh, tau=c["tau"], nsteps=c["nsteps"], cfg=CompiledConfig(*c["cfg"]),
+                     capacity=c["capacity"])
+
+
+def bell_sweep(dev, n, mesh=None, method="ros2", **config):
+    """The block-ELL Ros1 or Ros2 sweep (``method``) on the Rail surrogate
+    at ``n`` (`SWEEP`, any entry overridden by ``config``; X0 =
+    lowrank(E⁻¹Cᵀ, 0.01·I), abstol n·eps·‖C‖), on operands split over
+    ``mesh`` in ``bs``-row blocks (in one process without one).  Returns
+    (the final X and every K, gathered; ADI and Krylov iterations)."""
+    return _rail_sweep(dev, n, mesh, method, "bell", config)
+
+
+def ros2_sweep(dev, n, mesh=None, **config):
+    """`bell_sweep`'s Ros2 sweep on DIA operands, split over ``mesh`` in
+    ``PREC_BS``-row blocks."""
+    return _rail_sweep(dev, n, mesh, "ros2", "dia", config)
+
+
+def solve_sharded(mesh, op, W, alg):
+    """``prepare(op, alg).solve(W)`` (`ops.blocklinear`) on the rank's
+    shards of ``op`` and ``W`` (`shard_block`), under ``mesh``, gathered;
+    in one process without a mesh.  Returns (the solution, Krylov
+    iterations)."""
+    from ..ops.blocklinear import prepare
+    from .mesh import shard_operator, shard_tall, unshard_tall, use_mesh
+
+    n, block = op.shape[0], shard_block(op)
     if mesh is not None:
-        E_op, A_op, B, C = shard_pencil(mesh, E_op, A_op, B, C)
-        X0 = shard_lowrank(mesh, X0, PREC_BS)
-    prob = GDREProblem(E_op, A_op, B, C, X0, (4500.0, 4440.0))
-    sol, kry = _counted(lambda: solve_gdre_ros1_compiled(
-        prob, dt=-20.0, shifts=shifts, cfg=CompiledConfig(60, 10, 48), capacity=96,
-        abstol=1e-12))
-    X = gather_state(mesh, sol.X[-1], sol.K[-1], n)[0]
-    Ks = [gather_state(mesh, sol.X[-1], K, n)[1] for K in sol.K]
-    return X, Ks, sol.adi_iters, kry
+        op, W = shard_operator(mesh, op, block=block), shard_tall(mesh, W, block)
+    with use_mesh(mesh):
+        x, kry = _counted(lambda: prepare(op, alg).solve(W))
+    return (x if mesh is None else unshard_tall(mesh, x, n, block)), kry
+
+
+def compress_sharded(mesh, X):
+    """``lr_compress(method="gram")`` of ``X`` split over ``mesh`` in
+    ``PREC_BS``-row blocks, gathered; in one process without a mesh."""
+    from ..lowrank import LowRank, lr_compress
+    from ..models.compiled import PREC_BS
+    from .mesh import shard_lowrank, unshard_tall, use_mesh
+
+    if mesh is None:
+        return lr_compress(X, method="gram")
+    with use_mesh(mesh):
+        Y = lr_compress(shard_lowrank(mesh, X, PREC_BS), method="gram")
+    return LowRank(L=unshard_tall(mesh, Y.L, X.n, PREC_BS), D=Y.D, k=Y.k)
 
 
 def lr_dense(X) -> torch.Tensor:

@@ -215,9 +215,10 @@ def shard_operator(mesh, op, rank: int | None = None, world: int | None = None,
                    block: int = 1):
     """The rank's row shard of ``op``: a `ShardedDiaOp` (the diagonals over
     its rows, split in ``block``-row blocks: ``PREC_BS`` for the compiled
-    steps) or a `ShardedBellOp` (its block rows, block columns rebased to
-    the halo-extended operand), each with its halo width ``H``.  ``op`` is
-    the whole operator, on the rank's device."""
+    steps) or a `ShardedBellOp` (its block rows, split in blocks of the
+    operator's ``bs`` whatever ``block`` says, block columns rebased to the
+    halo-extended operand), each with its halo width ``H``.  ``op`` is the
+    whole operator, on the rank's device."""
     from ..ops.dia import DiaOp
     from ..ops.sparse import BellOp
     from .sharded_ops import ShardedBellOp, ShardedDiaOp
@@ -226,7 +227,7 @@ def shard_operator(mesh, op, rank: int | None = None, world: int | None = None,
     if isinstance(op, DiaOp):
         return ShardedDiaOp.from_op(mesh, op, rank, world, block)
     if isinstance(op, BellOp):
-        return ShardedBellOp(mesh, op, rank=rank, world=world)
+        return ShardedBellOp.from_op(mesh, op, rank, world)
     raise TypeError(f"cannot shard operator {type(op)}")
 
 

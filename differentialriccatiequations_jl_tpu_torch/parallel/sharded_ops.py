@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from ..kernels import bell_spmm as k2
 from ..kernels import dia_spmm as k1
 from ..ops.dia import DiaOp
+from ..ops.sparse import BellOp
 from .mesh import active_mesh, collectives, rank_and_size, row_range
 
 
@@ -72,6 +73,20 @@ def halo_exchange(X_l: torch.Tensor, H: int, mesh, dim: int = 0) -> torch.Tensor
             req.wait()
     collectives["halo_exchange"] += 1
     return torch.cat([prev, X_l, nxt], dim=dim)
+
+
+def _exchange(mesh, X_l: torch.Tensor, H: int, dim: int) -> torch.Tensor:
+    """`halo_exchange` for a shard's product, refused where it cannot span
+    the ranks: for an emulated shard (no mesh) and outside
+    ``use_mesh(mesh)``, where the reductions around the product would sum
+    this rank alone."""
+    if mesh is None:
+        raise ValueError("an emulated shard has no exchange: use extend "
+                         "and local_mm")
+    if active_mesh() is not mesh:
+        raise RuntimeError("a row-sharded product outside use_mesh(its mesh): "
+                           "the reductions around it would not span the ranks")
+    return halo_exchange(X_l, H, mesh, dim)
 
 
 def _extend(X: torch.Tensor, r0: int, r1: int, H: int) -> torch.Tensor:
@@ -164,13 +179,7 @@ class ShardedDiaOp(DiaOp):
         return Y[self.H:self.H + self.N]
 
     def _exchange(self, X_l: torch.Tensor, dim: int) -> torch.Tensor:
-        if self.mesh is None:
-            raise ValueError("an emulated shard has no exchange: use extend "
-                             "and local_mm")
-        if active_mesh() is not self.mesh:
-            raise RuntimeError("a row-sharded product outside use_mesh(its mesh): "
-                               "the reductions around it would not span the ranks")
-        return halo_exchange(X_l, self.H, self.mesh, dim)
+        return _exchange(self.mesh, X_l, self.H, dim)
 
     def _mm(self, X_l, t):
         if X_l.dim() == 1:
@@ -208,12 +217,13 @@ class ShardedBellSpmm:
     transpose : build the product with the transposed structure (``AᵀX``).
 
     Block rows split as `mesh.row_range` does (``⌈nb/W⌉`` per rank, the last
-    shard shorter); a shard must hold at least ``halo`` block rows.
+    shard shorter); a shard must hold at least ``halo`` block rows.  The
+    product raises outside ``use_mesh(mesh)``.  `of` is the product of a
+    `ShardedBellOp`'s stored structure.
     """
 
     def __init__(self, mesh, op, halo: int | None = None, transpose: bool = False,
                  rank: int | None = None, world: int | None = None):
-        self.mesh = mesh
         rank, world = rank_and_size(mesh, rank, world)
         cols = (op.cols_t if transpose else op.cols).cpu().numpy().astype(np.int64)
         data = op.data_t if transpose else op.data
@@ -221,15 +231,18 @@ class ShardedBellSpmm:
         b0, b1 = row_range(nb, world, rank)  # raises where a shard is empty
         per = -(-nb // world)
         rows = np.arange(nb)[:, None]
+        # Padded slots follow a block row's sorted pattern and point at block
+        # 0 with all-zero data (`ops.sparse._build_structure`).  They are
+        # told by the pattern, not by the data, so that pattern-sharing
+        # operators (a pencil's E and A) rebase alike and combine.
+        has_data = (data != 0).flatten(1).any(dim=1).cpu().numpy()[:, None]
+        real = (cols != 0) | ((np.arange(K)[None, :] == 0) & has_data)
         band = np.abs(cols - rows)
-        # Padded slots point at block 0 with all-zero data; exclude them
-        # from the bandwidth estimate.
-        real = (data != 0).flatten(2).any(dim=2).cpu().numpy()
         real_band = int(band[real].max()) if real.any() else 0
         H = real_band if halo is None else halo
         if real_band > H:
             raise ValueError(f"block bandwidth {real_band} exceeds halo {H}")
-        self.halo = H = max(1, H)
+        H = max(1, H)
         if H > _smallest_shard(nb, world):
             raise ValueError(f"halo {H} exceeds the {_smallest_shard(nb, world)} "
                              "block-rows of the smallest shard; use fewer ranks")
@@ -247,11 +260,24 @@ class ShardedBellSpmm:
         # as the extended operand has, of which the first nbl·bs are kept.
         cols_l = np.zeros((nbl + 2 * H, K), np.int32)
         cols_l[:nbl] = cols_reb[b0:b1]
-        dev = data.device
-        self.cols = torch.as_tensor(cols_l, device=dev)
-        self.data = torch.cat([data[b0:b1], data.new_zeros((2 * H, K, bs, bs))]).contiguous()
-        self.n, self.bs, self.nbl = op.n, bs, nbl
-        self.rows = row_range(op.n, world, rank, bs)
+        self._set(mesh, torch.as_tensor(cols_l, device=data.device),
+                  torch.cat([data[b0:b1], data.new_zeros((2 * H, K, bs, bs))]).contiguous(),
+                  H, row_range(op.n, world, rank, bs), op.n)
+
+    def _set(self, mesh, cols, data, halo, rows, n):
+        self.mesh, self.cols, self.data, self.halo, self.rows, self.n = (
+            mesh, cols, data, halo, rows, n)
+        self.bs = data.shape[-1]
+        self.nbl = -(-(rows[1] - rows[0]) // self.bs)
+
+    @classmethod
+    def of(cls, op: "ShardedBellOp", t: bool = False) -> "ShardedBellSpmm":
+        """The product of ``op``'s stored structure (its transposed one if
+        ``t``), without a copy."""
+        self = cls.__new__(cls)
+        self._set(op.mesh, op.cols_t if t else op.cols, op.data_t if t else op.data,
+                  op.H, op.rows, op.n)
+        return self
 
     def extend(self, X: torch.Tensor) -> torch.Tensor:
         """The halo-extended operand (``(nbl + 2H)·bs`` rows) the exchange
@@ -270,29 +296,88 @@ class ShardedBellSpmm:
 
     def __call__(self, X_l: torch.Tensor) -> torch.Tensor:
         """The rank's rows of ``A @ X`` from its rows ``X_l`` of ``X``."""
-        squeeze = X_l.dim() == 1
-        if squeeze:
-            X_l = X_l[:, None]
-        if self.mesh is None:
-            raise ValueError("an emulated shard has no exchange: use extend "
-                             "and local_mm")
-        nl = X_l.shape[0]
-        X_l = F.pad(X_l, (0, 0, 0, self.nbl * self.bs - nl))
-        Y = self.local_mm(halo_exchange(X_l, self.halo * self.bs, self.mesh))
-        return Y[:, 0] if squeeze else Y
+        if X_l.dim() == 1:
+            return self(X_l[:, None])[:, 0]
+        X_l = F.pad(X_l, (0, 0, 0, self.nbl * self.bs - X_l.shape[0]))
+        return self.local_mm(_exchange(self.mesh, X_l, self.halo * self.bs, 0))
 
 
-class ShardedBellOp:
-    """One rank's block-row shard of a `BellOp`: `mm` and `tmm` by a
-    `ShardedBellSpmm` each (``fwd``, ``bwd``), on the rank's rows."""
+@dataclasses.dataclass(frozen=True)
+class ShardedBellOp(BellOp):
+    """One rank's block-row shard ``[r0, r1)`` of a `BellOp`: ``cols``,
+    ``data`` and ``cols_t``, ``data_t`` hold the rank's block rows of the
+    forward and transposed structures, their block columns rebased to the
+    halo-extended operand (``[H block rows of the previous rank | the
+    rank's | H of the next]``), with ``2H`` block rows after them that no
+    kept output reads (`ShardedBellSpmm`); ``diag_`` covers the rank's
+    rows.  `mm` and `tmm` take the rank's rows of the operand, exchange
+    ``H·bs`` rows with each neighbour and run K2 on the extended operand
+    (`ShardedBellSpmm.of`); they raise outside ``use_mesh(mesh)``.
 
-    def __init__(self, mesh, op, rank: int | None = None, world: int | None = None):
-        self.fwd = ShardedBellSpmm(mesh, op, None, False, rank, world)
-        self.bwd = ShardedBellSpmm(mesh, op, None, True, rank, world)
-        self.n, self.rows = op.n, self.fwd.rows
+    It is the `BellOp` it shards wherever the compiled steps read one: ``n``
+    and ``shape`` are global, ``nb`` is the rank's block rows, `diag_blocks`
+    its own diagonal blocks (identity on the last rank's rows beyond
+    ``n``), and `adjoint`, `ops.sparse.bell_lin_comb`, `bell_scale`,
+    `ops.operators.op_astype` and ``dataclasses.replace`` keep the shard.
+    Real storage only."""
+
+    rows: tuple = (0, 0)  # (r0, r1)
+    H: int = 0  # halo, in block rows
+    mesh: object = None
+
+    @classmethod
+    def from_op(cls, mesh, op, rank: int, world: int) -> "ShardedBellOp":
+        fwd, bwd = (ShardedBellSpmm(mesh, op, None, t, rank, world) for t in (False, True))
+        if fwd.halo != bwd.halo:  # a nonsymmetric pattern: one halo for both
+            H = max(fwd.halo, bwd.halo)
+            fwd, bwd = (ShardedBellSpmm(mesh, op, H, t, rank, world) for t in (False, True))
+        r0, r1 = fwd.rows
+        return cls(cols=fwd.cols, data=fwd.data, cols_t=bwd.cols, data_t=bwd.data,
+                   diag_=op.diag_[r0:r1].contiguous(), n=op.n, bs=op.bs, rows=fwd.rows,
+                   H=fwd.halo, mesh=mesh)
+
+    @property
+    def nb(self) -> int:
+        return -(-(self.rows[1] - self.rows[0]) // self.bs)
+
+    def same_pattern(self, other: BellOp) -> bool:
+        """`BellOp.same_pattern`, and the same rank's rows and halo."""
+        return (super().same_pattern(other) and self.rows == other.rows
+                and self.H == other.H)
+
+    def diag_blocks(self) -> torch.Tensor:
+        """The ``(nb, bs, bs)`` diagonal blocks of the rank's block rows:
+        block row ``i`` at rebased block column ``i + H``; identity on the
+        last rank's rows beyond ``n``, as `BellOp.diag_blocks`."""
+        nb = self.nb
+        row = torch.arange(nb, device=self.device)[:, None] + self.H
+        hit = (self.cols[:nb] == row).to(self.dtype)
+        blocks = torch.einsum("ik,ikab->iab", hit, self.data[:nb])
+        pad = nb * self.bs - (self.rows[1] - self.rows[0])
+        if pad:
+            r = torch.arange(self.bs - pad, self.bs, device=self.device)
+            blocks[-1, r, r] += 1
+        return blocks
+
+    def to_dense(self):
+        raise NotImplementedError("a row shard has no whole form: gather the operator")
+
+    def extend(self, X: torch.Tensor) -> torch.Tensor:
+        """The halo-extended operand the exchange delivers, sliced from the
+        whole ``X``."""
+        return ShardedBellSpmm.of(self).extend(X)
+
+    def local_mm(self, X_ext: torch.Tensor, t: bool = False) -> torch.Tensor:
+        """The shard's rows of ``A @ X`` (``Aᵀ @ X`` if ``t``) from the
+        halo-extended operand."""
+        return ShardedBellSpmm.of(self, t).local_mm(X_ext)
 
     def mm(self, X_l: torch.Tensor) -> torch.Tensor:
-        return self.fwd(X_l)
+        """The rank's rows of ``A @ X`` from its rows ``X_l`` of ``X``."""
+        return ShardedBellSpmm.of(self)(X_l)
 
     def tmm(self, X_l: torch.Tensor) -> torch.Tensor:
-        return self.bwd(X_l)
+        """The rank's rows of ``Aᵀ @ X`` from its rows ``X_l`` of ``X``."""
+        if self.data_t is None:
+            raise ValueError("this BellOp stores no transposed structure")
+        return ShardedBellSpmm.of(self, True)(X_l)

@@ -1,6 +1,7 @@
 """The port (its ``parallel/`` layer, parareal and the row-sharded steps
 included), `chip_smoke.py` and `profile_steps.py` import no JAX, and CPU
-tensors never reach kernels K1 and K2.
+tensors never reach kernels K1 and K2; the row-sharded Ros1 step and a
+block-ELL shard's products run over a one-rank gloo group without JAX.
 
 Runs in a subprocess with ``jax`` blocked in ``sys.modules`` (the test
 process itself has JAX loaded by the conftest).
@@ -102,14 +103,21 @@ Y = torch.ones((100, 3), dtype=torch.float64)
 sh = shard_operator(None, E_op, rank=1, world=2)
 sh.local_mm(sh.extend(Y)); sh.local_mm(sh.extend(Y), t=True)
 sb = shard_operator(None, bE, rank=0, world=2)
-sb.fwd.local_mm(sb.fwd.extend(Y)); sb.bwd.local_mm(sb.bwd.extend(Y[:, 0]))
+sb.local_mm(sb.extend(Y)); sb.local_mm(sb.extend(Y[:, 0]), t=True)
 assert k1.launches == 0 and k2.launches == 0, (k1.launches, k2.launches)
 import torch.distributed as dist
 from differentialriccatiequations_jl_tpu_torch.parallel import dryrun
-from differentialriccatiequations_jl_tpu_torch.parallel.mesh import collectives, make_mesh
+from differentialriccatiequations_jl_tpu_torch.parallel.mesh import (
+    collectives, make_mesh, use_mesh)
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{dryrun.free_port()}",
                         world_size=1, rank=0)
-X, K, iters, res, _ = dryrun.ros1_step_sharded(torch.device("cpu"), 256, make_mesh(1, "cpu"))
+mesh = make_mesh(1, "cpu")
+X, K, iters, res, _ = dryrun.ros1_step_sharded(torch.device("cpu"), 256, mesh)
+sb = shard_operator(mesh, bE)
+with use_mesh(mesh):
+    for got, ref in ((sb.mm(Y), bE.mm(Y)), (sb.tmm(Y), bE.tmm(Y))):
+        assert torch.allclose(got, ref, rtol=1e-14, atol=0.0)
+del sb, mesh  # nothing holds the group past its end
 dist.destroy_process_group()
 assert iters > 0 and collectives["all_reduce"] > 0 and collectives["halo_exchange"] > 0
 assert k1.launches == 0, k1.launches

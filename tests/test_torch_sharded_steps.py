@@ -28,12 +28,13 @@ runs, each on row-sharded operands and in one process:
   are held to the JAX package).
 
 The validation errors, the identity of the reductions without a mesh, the
-refusal of a sharded product outside its mesh and the spawner's deadline
-need no group.  A ``cuda`` test runs the sweep at
+refusal of a sharded product (DIA and block-ELL) outside its mesh and the
+spawner's deadline need no group.  A ``cuda`` test runs the sweep at
 n = 1357 over a world-size-1 NCCL group on the card.
 """
 
 import dataclasses
+import functools
 import importlib
 import time
 
@@ -45,9 +46,9 @@ import torch
 from differentialriccatiequations_jl_tpu_torch.lowrank import (
     LowRank, lr_compress, lr_dot, lr_norm)
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
-    PREC_BS, build_dia_shift_ops)
-from differentialriccatiequations_jl_tpu_torch.ops.blocklinear import Krylov, KrylovSolver
+    PREC_BS, build_dia_shift_ops, build_step_shift_solvers)
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
+from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil
 from differentialriccatiequations_jl_tpu_torch.ops.operators import lr_update
 from differentialriccatiequations_jl_tpu_torch.parallel import dryrun
 from differentialriccatiequations_jl_tpu_torch.parallel.mesh import (
@@ -210,20 +211,6 @@ def test_reductions_are_the_identity_without_a_mesh():
     assert torch.equal(row_norm(t), torch.linalg.norm(t))
 
 
-def test_unported_sharded_routes_raise():
-    """GMRES and the gram compression are not ported to a mesh; both raise
-    before any collective."""
-    E, A, _, _ = rail_surrogate(64)
-    _, A_op = dia_pencil(E, A, device="cpu")
-    solver = KrylovSolver(op=A_op, prec=torch.ones(64, dtype=torch.float64),
-                          cfg=Krylov(method="gmres"))
-    with use_mesh(object()):
-        with pytest.raises(NotImplementedError, match="GMRES"):
-            solver.solve(torch.ones((64, 2), dtype=torch.float64))
-        with pytest.raises(NotImplementedError, match="gram"):
-            lr_compress(_factor(64, 8, 4, 5), method="gram")
-
-
 def _hang(dev):
     """Rank 0 enters an all-reduce that rank 1 never joins."""
     import torch.distributed as dist
@@ -320,16 +307,19 @@ def test_sharded_newton_step_matches_jax(runs):
     assert _rel(K, np.asarray(K1)) <= JAX_TOL
 
 
-def test_sharded_products_need_their_mesh():
-    """A product of a row shard raises outside ``use_mesh(its mesh)``, also
-    inside a solver or a low-rank update, before any collective: there the
-    reductions around it would sum one rank alone."""
+@pytest.mark.parametrize("fmt", ["dia", "bell"])
+def test_sharded_products_need_their_mesh(fmt):
+    """A product of a row shard (DIA, or block-ELL in 128-row blocks)
+    raises outside ``use_mesh(its mesh)``, also inside a solver or a
+    low-rank update, before any collective: there the reductions around it
+    would sum one rank alone."""
     E, A, B, _ = rail_surrogate(N)
-    E_op, A_op = dia_pencil(E, A, device="cpu")
+    pencil = dia_pencil if fmt == "dia" else functools.partial(bell_pencil, bs=PREC_BS)
+    E_op, A_op = pencil(E, A, device="cpu")
     mesh = object()  # stands for the shards' mesh: nothing reaches a group
     E_s, A_s = (dataclasses.replace(shard_operator(None, op, rank=0, world=1, block=PREC_BS),
                                     mesh=mesh) for op in (E_op, A_op))
-    lus = build_dia_shift_ops(E_s, A_s, np.asarray([-1.0]))
+    lus = build_step_shift_solvers(E_s, A_s, np.asarray([-1.0]))
     X = torch.ones((N, 2), dtype=torch.float64)
     F = lr_update(A_s, -1.0, torch.as_tensor(B), torch.ones((B.shape[1], N),
                                                            dtype=torch.float64))

@@ -94,11 +94,25 @@ both compilers started together, and then:
     refined block-ELL solve on block-ELL shards (launches by dtype), 18d a
     GMRES solve of Aᵀ − Eᵀ on DIA shards; then 18e, at n=1357 over 4 gloo
     ranks on the host's CPU against one process, the block-ELL Ros2 sweep
-    (phase 4's configuration), a `gram` compression and the GMRES solve.
+    (phase 4's configuration), a `gram` compression and the GMRES solve;
+19. runs the uncached compiled route, complex banded cores and the full
+    compiled Newton on row shards (ROADMAP items 11 and 10d): 19a phase 3's
+    first Ros1 step at n=79841 with the 1-D complex buffer ``[−0.5,
+    −1 ± 0.5i, −2]``, once without shift solvers (a solver prepared per ADI
+    iteration) and once on complex banded cores, each held to the
+    pair-encoded step (equal ADI iterations, K and LDLᵀ within 1e-9), K1
+    launches counted by route; 19b the uncached Ros1 step on the block-ELL
+    pencil (real buffer) against its cached step, through K2; 19c the
+    north-star Newton at capacity 192 on DIA row shards over a world-size-1
+    NCCL group against the same solve without a group (equal steps,
+    θ-stages, rebuilds and shift sets, K within 1e-10, each last residual
+    confirmed independently), walls, collectives per step and peaks
+    printed; 19d that Newton at n=256 over 2 gloo ranks on the host's CPU
+    against one process.
 
 Phases 10, 11, 14 and 15 hold each solver's residual against an
 independent evaluation (`residual`).  Every full-size path (phases 3, 5, 7,
-10, 11, 13, 14, 15, 16, 17 and 18) records the products it hands K1 and K2
+10, 11, 13, 14, 15, 16, 17, 18 and 19) records the products it hands K1 and K2
 (`ProductLog`: product, dtype, width, operand strides); after the run each
 kernel is held against its plain version at every one of them.
 
@@ -108,7 +122,7 @@ builds the kernels and runs phase 7 alone (at another capacity of ``X``);
 ``--host-only`` builds them and runs phases 8 to 11, ``--dense-only``
 phases 12 and 13, ``--gmres-only`` phase 14 and ``--mixed-only`` phase 15
 (both flags: both phases), ``--parareal-only`` phase 16, ``--sharded-only``
-phases 17 and 18.
+phases 17 and 18, ``--uncached-only`` phase 19.
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -141,7 +155,7 @@ from differentialriccatiequations_jl_tpu_torch import (
     Shifts, init, residual, solve)
 from differentialriccatiequations_jl_tpu_torch.entry import SHIFTS, entry
 from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
-from differentialriccatiequations_jl_tpu_torch.kernels import build
+from differentialriccatiequations_jl_tpu_torch.kernels import build, complex_route
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
 from differentialriccatiequations_jl_tpu_torch.lowrank import (
     LowRank, _mask_cols, lowrank, lr_add, lr_compress, lr_norm, lr_scale, lr_with_capacity,
@@ -151,7 +165,8 @@ from differentialriccatiequations_jl_tpu_torch.models import lyapunov_dense
 from differentialriccatiequations_jl_tpu_torch.models.compiled import (
     _ROS2_GAMMA, PREC_BS, CappedADI, CompiledConfig, PerStepHeuristic, _newton_step_compiled,
     _residual_norm,
-    build_dia_shift_ops, default_dia_krylov, pair_encode_shifts, ros1_initial_residual,
+    build_dia_shift_ops, build_sparse_shift_ops, default_dia_krylov, pair_encode_shifts,
+    ros1_initial_residual,
     ros1_step_compiled, ros2_step_compiled, solve_gare_newton_compiled,
     solve_gdre_ros1_compiled, solve_gdre_ros2_compiled)
 from differentialriccatiequations_jl_tpu_torch.models.parareal import (
@@ -2844,6 +2859,298 @@ def phase_shards(E, A, B, C, dev, k1_launches, k2_launches):
     return errs
 
 
+# --- phase 19: the uncached route, complex banded cores, the full Newton on row shards --
+
+# 19a: phase 3's first Ros1 step (FULL_STEP_CFG, τ = 10, capacity 96, X0 =
+# lowrank(E⁻¹Cᵀ, 0.01·I)) with the 1-D complex buffer SHIFTS, once without
+# cores (the uncached route: a solver prepared for each ADI iteration's
+# shift, the operator kind's default, SMW around Jacobi BiCGStab to 1e-12)
+# and once on complex banded cores (BiCGStab to 10·eps), each held to the
+# pair-encoded step: equal ADI iterations, K and LDLᵀ within STEP_REL_TOL.
+# 19b: the uncached step on the block-ELL pencil (bs = 128) with the real
+# buffer, held to its cached `SparseShiftOps` step.  19c: the north-star
+# Newton at capacity NEWTON_FULL_CAPACITY on DIA row shards over a
+# world-size-1 NCCL group, held to the same solve without a group: equal
+# Newton steps, ADI counts, rebuilds and convergence, θs and line-search λs
+# within THETA_REL_TOL, each shift set within SHIFT_SET_TOL (one rank
+# repeats the unsharded run's roundings, so its sets are equal; over ranks
+# a Penzl Arnoldi carries the all-reduces' rounding differences of K into
+# its Ritz values: 5.4e-10 over 2 gloo ranks at n = 256), K and LDLᵀ
+# within SHARDED_TOL, residual histories within NEWTON_REL_TOL (or
+# under the rounding floor), the last residual confirmed by an independent
+# evaluation.  19d: that Newton at N_NEWTON_CPU over NEWTON_CPU_RANKS gloo
+# ranks on the host's CPU against one process, held alike.
+NEWTON_FULL_CAPACITY = 192
+THETA_REL_TOL = 1e-12
+SHIFT_SET_TOL = 1e-8
+N_NEWTON_CPU = 256
+NEWTON_CPU_RANKS = 2
+NEWTON_CPU = dict(shifts=(NEWTON_SHIFTS.nshifts, NEWTON_SHIFTS.kp, NEWTON_SHIFTS.km),
+                  cfg=(SWEEP_CFG.maxiters, SWEEP_CFG.compression_interval, SWEEP_CFG.r_res),
+                  capacity=NEWTON_FULL_CAPACITY, reltol=NEWTON_RELTOL)
+
+
+class ComplexRoute:
+    """Counts the kernel launches made on the complex route
+    (`kernels.complex_route.product`: two a complex product, one where only
+    the operator or only the operand is complex) while it is active."""
+
+    def __enter__(self):
+        self.launches, self._product = 0, complex_route.product
+
+        def counting(launch, parts, X, dim):
+            before = k1.launches + k2.launches
+            try:
+                return self._product(launch, parts, X, dim)
+            finally:
+                self.launches += k1.launches + k2.launches - before
+
+        complex_route.product = counting
+        return self
+
+    def __exit__(self, *exc):
+        complex_route.product = self._product
+        return False
+
+
+def counted_run(tag, run):
+    """``run()``, a main path, under a `ProductLog` and a `ComplexRoute`: its
+    K1 and K2 launches count from 0 (reset just before it, read just after
+    it), its wall ends in a synchronize; then each kernel against its plain
+    version at every product the run fed it.  Returns (result, wall, {"K1",
+    "K2", "complex route", "Krylov": counts}, {kernel: max abs error})."""
+    with ProductLog() as products, ComplexRoute() as route:
+        s0 = blocklinear.krylov_iterations
+        torch.cuda.synchronize()
+        reset_launches()  # this path's run starts here
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = {"K1": k1.launches, "K2": k2.launches}  # ... and ends here
+        counts.update({"complex route": route.launches,
+                       "Krylov": blocklinear.krylov_iterations - s0})
+    return out, wall, counts, products.check(tag)
+
+
+def merge_errs(errs, more):
+    for kern, err in more.items():
+        errs[kern] = max(errs.get(kern, 0.0), err)
+
+
+def hold_steps(tag, runs, ref_name):
+    """Log each Ros1 step of ``runs`` ({name: ((X, K, iters, res), wall,
+    counts)}) and hold it to ``runs[ref_name]``: equal ADI iterations, K and
+    LDLᵀ within `STEP_REL_TOL`."""
+    (Xr, Kr, itr, _), _, _ = runs[ref_name]
+    for name, ((X, K, iters, res), wall, counts) in runs.items():
+        dK, dX = rel_diff(K, Kr), lr_rel_diff(X, Xr)
+        log(f"{tag} {name}: wall {wall:.3f} s, ADI iters {iters}, res {float(res):.6e}, "
+            f"rank {X.k}/{X.r}; launches {counts}; vs {ref_name}: K {dK:.3e}, LDLᵀ {dX:.3e}")
+        check(all(bool(torch.isfinite(t).all()) for t in (X.L, X.D, K)),
+              f"{tag} {name}: non-finite X or K")
+        check(iters == itr and dK <= STEP_REL_TOL and dX <= STEP_REL_TOL,
+              f"{tag} {name}: ADI {iters} vs {itr}, K {dK:.3e}, LDLᵀ {dX:.3e} "
+              f"(limit {STEP_REL_TOL})")
+
+
+def phase_uncached_dia(E, A, B, C, dev):
+    """Phase 19a.  Returns ({path: K1 launches}, max abs errors)."""
+    tag = f"[uncached dia n={N_FULL}]"
+    E_op, A_op, B_d, C_d, X0 = full_step_inputs(E, A, B, C, dev)
+    F_base = lin_comb(A_op, -1.0 / (2.0 * FULL_STEP_TAU), E_op)
+    pair = FULL_STEP_BUFFERS["pair"]
+    cores = {"pair-encoded cores": (pair, build_dia_shift_ops(E_op, F_base, pair)),
+             "uncached": (SHIFTS, None),
+             "complex cores": (SHIFTS, build_dia_shift_ops(E_op, F_base, SHIFTS))}
+    log(f"{tag} buffer {SHIFTS} (1-D complex) against its pair encoding; complex cores: "
+        f"{cores['complex cores'][1].data.dtype}, {cores['complex cores'][1].cfg.method}")
+    runs, errs = {}, {}
+    for name, (shifts, lus) in cores.items():
+        out, wall, counts, e = counted_run(f"{tag} {name}", lambda s=shifts, c=lus: (
+            ros1_step_compiled(E_op, A_op, B_d, C_d, X0, FULL_STEP_TAU, s, FULL_STEP_ABSTOL,
+                               FULL_STEP_CFG, c)))
+        runs[name] = (out, wall, counts)
+        merge_errs(errs, e)
+    hold_steps(tag, runs, "pair-encoded cores")
+    for name in ("uncached", "complex cores"):
+        counts = runs[name][2]
+        check(counts["K1"] > 0 and counts["complex route"] > 0,
+              f"{tag} {name}: no K1 launch on the complex route ({counts})")
+    return {"uncached_ros1": runs["uncached"][2]["K1"],
+            "complex_cores_ros1": runs["complex cores"][2]["K1"]}, errs
+
+
+def phase_uncached_bell(E, A, B, C, dev):
+    """Phase 19b.  Returns ({path: K2 launches}, max abs errors)."""
+    tag = f"[uncached bell n={N_FULL}]"
+    E_b, A_b = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+    B_d, C_d = (torch.as_tensor(M, dtype=torch.float64, device=dev) for M in (B, C))
+    X0 = dryrun.rail_x0(E, C, dev, CAPACITY)
+    shifts = FULL_STEP_BUFFERS["real"]
+    runs, errs = {}, {}
+    for name in ("cached", "uncached"):
+        lus = None if name == "uncached" else build_sparse_shift_ops(
+            E_b, lin_comb(A_b, -1.0 / (2.0 * FULL_STEP_TAU), E_b), shifts)
+        out, wall, counts, e = counted_run(f"{tag} {name}", lambda c=lus: ros1_step_compiled(
+            E_b, A_b, B_d, C_d, X0, FULL_STEP_TAU, shifts, FULL_STEP_ABSTOL, FULL_STEP_CFG, c))
+        runs[name] = (out, wall, counts)
+        merge_errs(errs, e)
+        del lus  # the cached step's 1.7 GB of shifted operators
+    hold_steps(tag, runs, "cached")
+    for name, (_, _, counts) in runs.items():
+        check(counts["K2"] > 0, f"{tag} {name}: K2 was not launched")
+    return {"uncached_bell_ros1": runs["uncached"][2]["K2"]}, errs
+
+
+def gare_check(tag, prob, X, info, n):
+    """Log a Newton solve's outcome and hold its last residual to an
+    independent evaluation (`residual_gare_lowrank` of the whole X on the
+    whole operators), as phase 7 does.  Returns the independent one."""
+    hist = info["residuals"]
+    rel_solver = hist[-1] / hist[0]
+    theta = info["thetas"][-1] if info["thetas"] else 1.0
+    G_theta = LowRank(L=prob.G.L, D=theta * prob.G.D, k=prob.G.k)
+    rel_ind = float(lr_norm(residual_gare_lowrank(prob.E, prob.A, G_theta, prob.Q, X))
+                    / lr_norm(prob.Q))
+    log(f"{tag}: converged {info['converged']}, {info['newton_steps']} Newton steps, "
+        f"{info['shift_rebuilds']} rebuilds, {len(info['thetas'])} theta-stages, ADI iters "
+        f"{sum(info['adi_iters'])} in all; final relative residual {rel_solver:.6e} at theta "
+        f"{theta:.6e} (independent {rel_ind:.6e}); rank {X.k}/{X.r}")
+    floor = n * float(torch.finfo(torch.float64).eps)
+    check(bool(np.isfinite(hist).all()), f"{tag}: non-finite residual")
+    check(abs(rel_ind - rel_solver) <= RESIDUAL_AGREE_TOL * rel_solver + floor,
+          f"{tag}: independent residual {rel_ind:.6e} differs from the solver's "
+          f"{rel_solver:.6e} by more than {RESIDUAL_AGREE_TOL}")
+    return rel_ind
+
+
+def hold_newtons(tag, got, ref, diffs, n):
+    """Two Newton solves at ``n``, ``got`` and ``ref`` ((info, shift
+    sets)): equal steps, ADI counts, rebuilds and convergence, θs and
+    line-search λs within `THETA_REL_TOL`, as many shift sets, each within
+    `SHIFT_SET_TOL`, residual histories within `NEWTON_REL_TOL` (or under
+    the rounding floor n·eps·‖Q‖); ``diffs`` ({name: relative difference})
+    within `SHARDED_TOL`."""
+    (info, sets), (ref_info, ref_sets) = got, ref
+    for key in ("newton_steps", "adi_iters", "shift_rebuilds", "converged"):
+        check(info[key] == ref_info[key], f"{tag}: {key} {info[key]} vs {ref_info[key]}")
+    for key in ("thetas", "linesearch_lams"):
+        a, b = np.asarray(info[key]), np.asarray(ref_info[key])
+        check(a.shape == b.shape and np.allclose(a, b, rtol=THETA_REL_TOL, atol=0.0),
+              f"{tag}: {key} {a} vs {b}")
+    set_diff = max((float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                    for a, b in zip(sets, ref_sets)), default=0.0)
+    check(len(sets) == len(ref_sets) and all(a.shape == b.shape for a, b in zip(sets, ref_sets))
+          and set_diff <= SHIFT_SET_TOL,
+          f"{tag}: shift sets differ ({len(sets)} vs {len(ref_sets)}, {set_diff:.3e})")
+    h, hr = np.asarray(info["residuals"]), np.asarray(ref_info["residuals"])
+    floor = n * float(torch.finfo(torch.float64).eps) * hr[0]
+    check(h.shape == hr.shape and np.allclose(h, hr, rtol=NEWTON_REL_TOL, atol=floor),
+          f"{tag}: residual histories differ beyond {NEWTON_REL_TOL}")
+    log(f"{tag}: sharded vs one process: {info['newton_steps']} steps, rebuilds "
+        f"{info['shift_rebuilds']}, {len(sets)} shift sets within {set_diff:.3e}; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()))
+    check(all(v <= SHARDED_TOL for v in diffs.values()), f"{tag}: {diffs} beyond {SHARDED_TOL}")
+
+
+def phase_newton_shards(E, A, B, C, dev):
+    """Phase 19c.  Returns ({path: K1 launches}, max abs errors)."""
+    tag = f"[newton shards n={N_FULL}]"
+    prob = newton_problem(E, A, B, C, dev)
+    kw = dict(shifts=NEWTON_SHIFTS, cfg=SWEEP_CFG, capacity=NEWTON_FULL_CAPACITY,
+              maxiters=NEWTON_MAXITERS, reltol=NEWTON_RELTOL)
+    log(f"{tag} capacity {NEWTON_FULL_CAPACITY}, reltol {NEWTON_RELTOL}, {NEWTON_SHIFTS}")
+
+    def run(m):
+        c0 = collections.Counter(mesh_mod.collectives)
+        t = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the outcome is logged below
+            out, peak = with_peak(lambda: dryrun.newton_solve(prob.E, prob.A, prob.G, prob.Q,
+                                                              m, **kw))
+        torch.cuda.synchronize()
+        return out, peak, time.perf_counter() - t, dict(mesh_mod.collectives - c0)
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, timeout=GROUP_TIMEOUT)
+    try:
+        outs, errs = run_twins(tag, run, make_mesh(1))
+    finally:
+        dist.destroy_process_group()
+    ((X, K, info, sets, kry), peak, wall, coll), l1, _ = outs["sharded"]
+    ((Xr, Kr, info_r, sets_r, kry_r), peak_r, wall_r, _), l1_r, _ = outs["unsharded"]
+    steps = max(info["newton_steps"], 1)
+    per_step = ", ".join(f"{k} {v / steps:.1f}" for k, v in coll.items())
+    log(f"{tag} wall {wall:.3f} s sharded, {wall_r:.3f} s unsharded; K1 launches {l1} / "
+        f"{l1_r}; Krylov {kry} / {kry_r}; collectives {coll} ({per_step} per Newton step); "
+        f"peak device memory above the run's start {peak:.3f} / {peak_r:.3f} GiB; {card_line()}")
+    for name, (Xn, info_n) in (("sharded", (X, info)), ("unsharded", (Xr, info_r))):
+        check(all(bool(torch.isfinite(t).all()) for t in (Xn.L, Xn.D, K, Kr)),
+              f"{tag} {name}: non-finite X or K")
+        gare_check(f"{tag} {name}", prob, Xn, info_n, N_FULL)
+    hold_newtons(tag, (info, sets), (info_r, sets_r),
+                 {"K": rel_diff(K, Kr), "LDLᵀ": lr_rel_diff(X, Xr)}, N_FULL)
+    check(abs(kry - kry_r) <= KRYLOV_REL_TOL * kry_r, f"{tag}: Krylov {kry} vs {kry_r}")
+    check(l1["f64"] > 0 and l1 == l1_r, f"{tag}: K1 launches {l1} sharded, {l1_r} unsharded")
+    return {"sharded_newton_full": l1["f64"]}, errs
+
+
+def newton_cpu_run(dev, n, mesh=None):
+    """Phase 19d's Newton at ``n`` on ``dev`` (over ``mesh`` if given):
+    numpy LDLᵀ and K, info, shift sets."""
+    X, K, info, sets, _ = dryrun.rail_newton(dev, n, mesh, NEWTON_MAXITERS, **NEWTON_CPU)
+    return (X.L @ X.D @ X.L.T).numpy(), K.numpy(), info, sets
+
+
+def newton_cpu_rank(dev, n):
+    """Phase 19d's rank: `newton_cpu_run` over the group's ranks."""
+    return newton_cpu_run(dev, n, make_mesh(device=dev.type))
+
+
+def phase_newton_cpu():
+    """Phase 19d: 19c's Newton at `N_NEWTON_CPU` over `NEWTON_CPU_RANKS`
+    gloo ranks on the host's CPU against one process (run meanwhile)."""
+    tag = f"[newton shards n={N_NEWTON_CPU}, {NEWTON_CPU_RANKS} gloo ranks]"
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        return fn(*args), time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ranks = pool.submit(timed, dryrun.run_ranks, newton_cpu_rank, NEWTON_CPU_RANKS, "cpu",
+                            (N_NEWTON_CPU,))
+        (Xr, Kr, info_r, sets_r), wall_r = timed(newton_cpu_run, torch.device("cpu"),
+                                                 N_NEWTON_CPU)
+        (X, K, info, sets), wall = ranks.result()
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))  # noqa: E731
+    log(f"{tag}: {wall:.3f} s (spawn included), one process {wall_r:.3f} s, both at once; "
+        f"converged {info['converged']}, last relative residual "
+        f"{info['residuals'][-1] / info['residuals'][0]:.6e}")
+    hold_newtons(tag, (info, sets), (info_r, sets_r), {"K": rel(K, Kr), "LDLᵀ": rel(X, Xr)},
+                 N_NEWTON_CPU)
+
+
+def phase_uncached(E, A, B, C, dev, k1_launches, k2_launches):
+    """Phase 19: 19a–c on the card, then 19d on the host's CPU.  Adds the
+    launches per path to ``k1_launches`` and ``k2_launches``; returns the
+    kernels' max abs errors."""
+    t0 = time.perf_counter()
+    errs = {}
+    for part, launches in ((phase_uncached_dia, k1_launches), (phase_uncached_bell, k2_launches),
+                           (phase_newton_shards, k1_launches)):
+        t = time.perf_counter()
+        l, e = part(E, A, B, C, dev)
+        launches.update(l)
+        merge_errs(errs, e)
+        log(f"[uncached] {part.__name__} took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_newton_cpu()
+    log(f"[uncached] phase_newton_cpu took {time.perf_counter() - t:.1f} s")
+    log(f"[uncached] phase 19 took {time.perf_counter() - t0:.1f} s; {card_line()}")
+    return errs
+
+
 def checked(tag, kern, run):
     """``run()``, a full-size main path that returns its launches, under a
     `ProductLog`; then the kernels against their plain versions at every
@@ -2883,9 +3190,12 @@ def main() -> int:
                          "phase 16")
     ap.add_argument("--sharded-only", action="store_true",
                     help="build the kernels and run only the row-sharded phases 17 and 18")
+    ap.add_argument("--uncached-only", action="store_true",
+                    help="build the kernels and run only phase 19 (the uncached route, "
+                         "complex banded cores, the full Newton on row shards)")
     args = ap.parse_args()
     only = args.newton_only or args.host_only or args.dense_only or args.gmres_only \
-        or args.mixed_only or args.parareal_only or args.sharded_only
+        or args.mixed_only or args.parareal_only or args.sharded_only or args.uncached_only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2918,6 +3228,10 @@ def main() -> int:
             k1_launches, k2_launches = {}, {}
             phase_sharded(E, A, B, C, dev, k1_launches)
             phase_shards(E, A, B, C, dev, k1_launches, k2_launches)
+            log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
+        elif args.uncached_only:
+            k1_launches, k2_launches = {}, {}
+            phase_uncached(E, A, B, C, dev, k1_launches, k2_launches)
             log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
         elif args.gmres_only or args.mixed_only:
             k1_launches, k2_launches = {}, {}
@@ -2970,6 +3284,9 @@ def main() -> int:
             k2_err = max(k2_err, errs["K2"])
             k1_err = max(k1_err, phase_sharded(E, A, B, C, dev, k1_launches))
             errs = phase_shards(E, A, B, C, dev, k1_launches, k2_launches)
+            k1_err = max(k1_err, errs.get("K1", 0.0))
+            k2_err = max(k2_err, errs.get("K2", 0.0))
+            errs = phase_uncached(E, A, B, C, dev, k1_launches, k2_launches)
             k1_err = max(k1_err, errs.get("K1", 0.0))
             k2_err = max(k2_err, errs.get("K2", 0.0))
     except PhaseError as e:

@@ -48,3 +48,5 @@ __all__ = [
     "sign_function_cache", "solve_gdre_dense", "solve_gale_gmres",
     "solve_gdre_parareal",
 ]
+
+__version__ = "0.1.0"

@@ -14,6 +14,7 @@ reason); the CUDA analog is TF32, which keeps about three decimal digits.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -29,6 +30,15 @@ COMPRESSION_RTOL_FACTOR = 100.0
 
 def default_dtype() -> torch.dtype:
     return DEFAULT_DTYPE
+
+
+def set_default_dtype(dtype) -> None:
+    """Set the default element type: a `torch.dtype`, or any name or type
+    numpy reads as one (``"float32"``, ``np.float32``)."""
+    global DEFAULT_DTYPE
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
+    DEFAULT_DTYPE = dtype
 
 
 def eps(dtype: torch.dtype | None = None) -> float:
@@ -51,3 +61,12 @@ def resolve_device(dev=None) -> torch.device:
     (raising where there is none).  The constructors that build tensors
     from host arrays take their default device from here."""
     return device() if dev is None else torch.device(dev)
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """``x`` as a tensor: a tensor as it is, on its own device; any other
+    array (numpy, nested lists) on ``device`` (`resolve_device`: the card
+    by default)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, device=resolve_device(device))

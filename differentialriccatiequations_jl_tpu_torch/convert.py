@@ -18,7 +18,7 @@ import torch
 from .config import resolve_device
 from .lowrank import LowRank
 from .models import problems, shifts
-from .models.compiled import CappedADI, DiaShiftOps, ShiftLUs, SparseShiftOps
+from .models.compiled import CappedADI, CompiledConfig, DiaShiftOps, ShiftLUs, SparseShiftOps
 from .models.lyapunov_dense import SignFunctionCache
 from .models.problems import GALEProblem, GAREProblem, GDREProblem
 from .ops.blocklinear import Backslash, Krylov, ShermanMorrisonWoodbury
@@ -98,7 +98,8 @@ _FORCING = {"quadratic_forcing": problems.quadratic_forcing,
 def config_from(cfg):
     """The port's config for one of the JAX package's (or ``None``), read
     field by field; dispatches on the class name: `ADI`, `GMRES` (its
-    ``preconditioner`` converted in turn), `CappedADI`, `Newton`, `Ros1`,
+    ``preconditioner`` converted in turn), `CappedADI`, `CompiledConfig` (its
+    ``inner_alg`` converted in turn), `Newton`, `Ros1`,
     `Ros2`, `Parareal`, the four shift strategies, `Krylov`, `ShermanMorrisonWoodbury`
     and `Backslash`.  A strategy's list of precomputed shift values becomes
     a tuple of Python ``complex``; the named forcing functions become the
@@ -121,6 +122,9 @@ def config_from(cfg):
             warn_convergence=cfg.warn_convergence)
     if name == "CappedADI":
         return CappedADI(maxiters=cfg.maxiters, r_in=cfg.r_in, capacity=cfg.capacity)
+    if name == "CompiledConfig":
+        return CompiledConfig(maxiters=cfg.maxiters, compression_interval=cfg.compression_interval,
+                              r_res=cfg.r_res, inner_alg=config_from(cfg.inner_alg))
     if name == "Newton":
         forcing = _FORCING.get(getattr(cfg.inexact_forcing, "__name__", None),
                                cfg.inexact_forcing)

@@ -28,7 +28,7 @@ import warnings
 import torch
 import torch.nn.functional as F
 
-from .config import COMPRESSION_RTOL_FACTOR, resolve_device
+from .config import COMPRESSION_RTOL_FACTOR, as_tensor, resolve_device
 from .parallel.mesh import active_mesh, row_allgather, row_allreduce
 
 
@@ -72,14 +72,16 @@ def _mask_inner(D: torch.Tensor, k: int) -> torch.Tensor:
     return F.pad(D[:k, :k], (0, pad, 0, pad))
 
 
-def lowrank(L, D=None, k: int | None = None) -> LowRank:
+def lowrank(L, D=None, k: int | None = None, *, device=None) -> LowRank:
     """Construct a `LowRank` from (possibly unpadded) factors.
 
     ``D`` may be a matrix, a 1-D vector of diagonal entries, or ``None``
     (identity).  ``k`` defaults to the full width of ``L``; with ``k`` the
-    factors are masked to establish the zero-padding invariant.
+    factors are masked to establish the zero-padding invariant.  A tensor
+    ``L`` keeps its device; a numpy one goes to ``device`` (default the
+    card: `config.resolve_device`).  ``D`` follows ``L``.
     """
-    L = torch.as_tensor(L)
+    L = as_tensor(L, device)
     r = L.shape[1]
     if D is None:
         D = torch.eye(r, dtype=L.dtype, device=L.device)

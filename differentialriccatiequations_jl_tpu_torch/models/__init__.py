@@ -12,6 +12,7 @@ package.
 
 from __future__ import annotations
 
+from ..lowrank import LowRank, lowrank, lr_compress
 from . import shifts
 from .adi import ADISolver, solve_gale_adi
 from .gmres import solve_gale_gmres
@@ -82,5 +83,5 @@ __all__ = [
     "solve_gare_newton", "solve_gdre_parareal",
     "solve_gdre_lowrank_ros1", "solve_gdre_lowrank_ros2", "feedback_K", "shifts",
     "solve_gale_dense", "solve_gale_host", "solve_gale_kronecker",
-    "sign_function_cache", "solve_gdre_dense",
+    "sign_function_cache", "solve_gdre_dense", "LowRank", "lowrank", "lr_compress",
 ]

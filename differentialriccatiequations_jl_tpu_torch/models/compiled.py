@@ -22,8 +22,9 @@ flow:
 * the ADI convergence test ``res > abstol`` syncs once per ADI iteration,
   and each Krylov iteration syncs once (``ops.blocklinear``).
 
-**Row-sharded operands** (ROADMAP items 10b and 10c): the Ros1 and Ros2
-steps and sweeps, `adi_compiled` and `_newton_step_compiled` also run on
+**Row-sharded operands** (ROADMAP items 10b, 10c and 10d): the Ros1 and
+Ros2 steps and sweeps, `adi_compiled`, `_newton_step_compiled` and the
+Newton solver `solve_gare_newton_compiled` also run on
 operators split by rows over a 1-D mesh (`parallel.mesh.shard_operator`:
 DIA with ``block=PREC_BS``, block-ELL in its ``bs``-row blocks), ``X``
 from `parallel.mesh.shard_lowrank`, ``B`` split by rows and ``C`` by
@@ -38,12 +39,21 @@ the same host branches, from all-reduced or redundantly computed values.
 ``K`` comes out split by columns (each rank's columns, a deliberate
 difference from the JAX package's global array).
 
-Supported shift buffers: all-real 1-D ``(ns,)`` and the pair encoding
+Supported shift buffers: all-real 1-D ``(ns,)``, the pair encoding
 ``(ns, 2)`` of ``(Re μ, |Im μ|)`` rows (`pair_encode_shifts`), whose
 conjugate-pair slots run the all-real stacked double step (banded pencils
-only).  A 1-D complex buffer runs the complex double step on dense cores
-(complex LUs, the JAX package's CPU route) and raises on the others: the
-pair encoding keeps the kernels real-only.
+only), and 1-D complex with conjugates adjacent, whose pairs run the
+complex double step (one complex solve a pair, the JAX package's CPU
+route): on dense cores through complex LUs, on banded cores through
+complex per-slot DIA data and BiCGStab (their products reach K1 by
+`kernels.complex_route`).  Block-ELL cores take real shifts only.
+
+**The uncached route.**  `adi_compiled` and `ros1_step_compiled` also run
+without precomputed cores (``shift_lus=None``): each ADI iteration then
+prepares a solver for its shift, ``prepare_shifted(E, A, μ, inner)`` with
+``inner = cfg.inner_alg`` or the default for the operator kind
+(`ops.shifted.default_inner_alg`), so a 1-D complex buffer runs on dense,
+banded and block-ELL operators alike.
 """
 
 from __future__ import annotations
@@ -65,8 +75,11 @@ from ..ops.blocklinear import (
 from ..ops.dia import DiaOp, DiaPairOp
 from ..ops.operators import (
     DenseOp, LowRankUpdateOp, lin_comb, lr_update, op_astype, scale_op)
+from ..ops.shifted import default_inner_alg, prepare_shifted
 from ..ops.sparse import BellOp
-from ..parallel.mesh import mesh_of, on_operator_mesh, row_allreduce, row_norm, use_mesh
+from ..parallel.mesh import (
+    active_mesh, mesh_of, on_operator_mesh, on_problem_mesh, row_allgather, row_allreduce, row_norm,
+    use_mesh)
 from ..utils.callbacks import notify
 from .adi import _in_dtype, _residual_norm
 from .problems import DRESolution
@@ -86,6 +99,9 @@ class CompiledConfig:
     maxiters: int = 60
     compression_interval: int = 10
     r_res: int = 32  # residual factor width (≥ numerical residual rank)
+    # The uncached route's solver (``shift_lus=None``): None → routed per
+    # operator kind (`ops.shifted.default_inner_alg`).
+    inner_alg: object = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,8 +236,12 @@ def build_dia_shift_ops(E: DiaOp, A0: DiaOp, shifts,
     """Assemble the per-shift shifted DIA operators ``A₀ᵀ + μₛEᵀ`` and their
     block-Jacobi inverses (``PREC_BS``-wide blocks).  ``E``/``A0``:
     diagonal-set-sharing `DiaOp`s (see `ops.dia.dia_pencil`).  ``shifts``:
-    host array, 1-D real or the ``(ns, 2)`` pair encoding; the shifts take
-    the operators' dtype.  ``krylov_cfg`` defaults to `default_dia_krylov`.
+    host array, 1-D real, 1-D complex (complex per-slot data and block
+    inverses: the complex double step, with one complex solve a pair) or
+    the ``(ns, 2)`` pair encoding; the shifts take the operators' dtype
+    (made complex for a complex buffer).  ``krylov_cfg`` defaults to
+    `default_dia_krylov`: BiCGStab for a complex buffer, a conjugate pair
+    or a known-nonsymmetric pencil.
 
     ``block_cache``: optional dict reused across calls with the same pencil;
     it caches the pencil members' diagonal blocks so a rebuild costs one
@@ -231,27 +251,29 @@ def build_dia_shift_ops(E: DiaOp, A0: DiaOp, shifts,
     split in ``PREC_BS``-row blocks: then every table holds the rank's
     rows."""
     shifts = np.asarray(shifts)
-    if np.iscomplexobj(shifts):
-        raise ValueError("complex 1-D shift buffers are not supported; "
-                         "pair-encode them with pair_encode_shifts")
     pair_encoded = shifts.ndim == 2
     has_pairs = pair_encoded and bool(np.any(shifts[:, 1] != 0))
+    complex_buf = np.iscomplexobj(shifts)
     # Any conjugate pair means a nonsymmetric pencil, and so does a
-    # known-nonsymmetric operator: then every slot uses BiCGStab.  All-real
-    # buffers on symmetric pencils keep CG.
+    # known-nonsymmetric operator: then every slot uses BiCGStab, as it
+    # does for a complex buffer (complex-symmetric, not Hermitian).
+    # All-real buffers on symmetric pencils keep CG.
     if krylov_cfg is None:
         nonsym = A0.symmetric is False or E.symmetric is False
-        krylov_cfg = default_dia_krylov(E.dtype, has_pairs or nonsym)
+        krylov_cfg = default_dia_krylov(E.dtype, has_pairs or nonsym or complex_buf)
 
     At, Et = A0.adjoint(), E.adjoint()
     dt, dev = At.dtype, At.device
+    if complex_buf:
+        dt = torch.promote_types(dt, torch.complex64)
     a_host = shifts[:, 0] if pair_encoded else shifts
     a_part = torch.as_tensor(a_host, dtype=dt, device=dev)
-    data, data_t = _shifted_dia_data(At.data, At.data_t, Et.data, Et.data_t,
-                                     a_part)
+    data, data_t = _shifted_dia_data(At.data.to(dt), At.data_t.to(dt), Et.data.to(dt),
+                                     Et.data_t.to(dt), a_part)
 
     # The block inverses are built in the Krylov core's dtype: the low one
-    # of a mixed-precision core, from the pencil cast to it.
+    # of a mixed-precision core, from the pencil cast to it (complex for a
+    # complex buffer).
     pdt = dt if krylov_cfg.solve_dtype is None else solve_dtype(krylov_cfg.solve_dtype, dt)
     key = ("pencil_blocks", PREC_BS, str(pdt))
     if block_cache is not None and key in block_cache:
@@ -440,7 +462,7 @@ def _wrap_smw_pair(core, A, dtype):
 
 @on_operator_mesh
 def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
-                 cfg: CompiledConfig, shift_lus):
+                 cfg: CompiledConfig, shift_lus=None):
     """Low-rank ADI over a cyclic shift buffer.
 
     Args:
@@ -450,12 +472,15 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
         ``2·w_k``) columns to ``X``.
       X0: warm-start iterate; ``W0 T0 W0ᵀ`` must be the GALE residual at it.
       shifts: host array, 1-D real or ``(ns, 2)`` pair-encoded; 1-D
-        complex (conjugates adjacent, `check_shift_pairing`) with
-        `ShiftLUs` only, whose pairs run the complex double step.
+        complex (conjugates adjacent, `check_shift_pairing`), whose pairs
+        run the complex double step, with `ShiftLUs`, `DiaShiftOps` or no
+        cores.
       abstol: absolute residual tolerance.
       shift_lus: `DiaShiftOps`, `SparseShiftOps` or `ShiftLUs` built for
         ``shifts`` (only `DiaShiftOps` has the pair tables a pair-encoded
-        conjugate pair needs).
+        conjugate pair needs), or ``None``: the uncached route, where each
+        iteration solves through ``prepare_shifted(E, A, μ, inner)`` with
+        ``inner = cfg.inner_alg`` or the operator kind's default.
 
     Compression runs every ``cfg.compression_interval`` iterations and
     whenever the next increment would overflow the capacity ``X0.r``; a
@@ -470,32 +495,40 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
     Returns (X, W, iters, res_norm).
     """
     shifts = np.asarray(shifts)
-    dense_lus = isinstance(shift_lus, ShiftLUs)
-    if np.iscomplexobj(shifts) and not dense_lus:
-        raise ValueError("complex 1-D shift buffers need dense cores (ShiftLUs); "
-                         "pair-encode them with pair_encode_shifts")
+    if np.iscomplexobj(shifts) and isinstance(shift_lus, SparseShiftOps):
+        raise ValueError("block-ELL shift operators take real shifts only; pass "
+                         "shift_lus=None for the uncached route")
     nshifts = shifts.shape[0]
     pair_encoded = shifts.ndim == 2
     q = W0.shape[1]
     dt = W0.dtype
-    sdt = shift_lus.lu.dtype if dense_lus else shift_lus.data.dtype
+    if shift_lus is None:
+        # The kind of Aᵀ + μEᵀ is that of A, so its default solver is A's.
+        inner = cfg.inner_alg if cfg.inner_alg is not None else default_inner_alg(A)
+    else:
+        sdt = shift_lus.lu.dtype if isinstance(shift_lus, ShiftLUs) else shift_lus.data.dtype
 
-    def cached_solve(idx, W):
-        """``(Aᵀ + μEᵀ)⁻¹W`` through slot ``idx``'s core and the SMW
-        correction, in the cores' dtype."""
+    def solve_at(mu, idx, W):
+        """``(Aᵀ + μEᵀ)⁻¹W``: through slot ``idx``'s core and the SMW
+        correction, in the cores' dtype, or without cores through a solver
+        prepared for ``μ`` (complex ``W`` for a complex ``μ``)."""
+        if shift_lus is None:
+            if isinstance(mu, complex):
+                W = W.to(torch.promote_types(dt, torch.complex64))
+            return prepare_shifted(E, A, mu, inner).solve(W)
         return _wrap_smw(shift_lus.core_solver(idx), A, sdt).solve(W.to(sdt))
 
     def real_step(mu, idx, W, T, X):
-        V = cached_solve(idx, W)
+        V = solve_at(mu, idx, W)
         V = (V.real if V.is_complex() else V).to(dt)
         incr = LowRank(L=V, D=(-2.0 * mu) * T, k=w_k)
         W_new = W - 2.0 * mu * E.tmm(V)
         return W_new, lr_append(X, incr, r_out=X.r), 1
 
     def double_step(mur, b, idx, W, T, X):
-        if dense_lus:
+        if not pair_encoded:
             # One complex solve for the pair a ± b·i (1-D complex buffer).
-            V = cached_solve(idx, W)
+            V = solve_at(complex(mur, b), idx, W)
             Vr, Vi = V.real.to(dt), V.imag.to(dt)
         else:
             # All-real stacked solve of the pair system (the complex double
@@ -529,7 +562,7 @@ def adi_compiled(E, A, W0, T0, w_k: int, X0: LowRank, shifts, abstol: float,
             mur, b = float(shifts[idx].real), float(shifts[idx].imag)
         if b == 0.0:
             W, X, used = real_step(mur, idx, W, T0, X)
-        elif not (dense_lus or getattr(shift_lus, "et_data", None) is not None):
+        elif pair_encoded and getattr(shift_lus, "et_data", None) is None:
             raise ValueError("pair-encoded shift with Im(mu) != 0 but the "
                              "shift operators have no pair tables")
         else:
@@ -573,9 +606,11 @@ def ros1_initial_residual(E, A, B, C, X: LowRank, tau: float,
 @on_operator_mesh
 def ros1_step_compiled(E, A, B, C, X: LowRank, tau: float, shifts,
                        abstol: float, cfg: CompiledConfig,
-                       shift_lus):
+                       shift_lus=None):
     """One full LRSIF Ros1 (implicit Euler) GDRE time step, end to end:
-    RHS assembly, the ADI loop, the feedback update.
+    RHS assembly, the ADI loop, the feedback update.  ``shift_lus`` holds
+    the cores of ``(A − E/(2τ))ᵀ + μEᵀ``; without them each ADI iteration
+    prepares its own solver (`adi_compiled`'s uncached route).
     Returns (X_next, K_next, adi_iters, adi_residual_norm)."""
     F_op, res0 = ros1_initial_residual(E, A, B, C, X, tau, cfg)
     W0 = _mask_cols(res0.L, res0.k)
@@ -685,7 +720,7 @@ def encode_shifts_for_operator(shifts, core) -> np.ndarray:
     In the JAX package this re-encodes complex buffers for the TPU; off the
     TPU, and so always here, the buffer passes unchanged (a host numpy
     array).  ``core`` is kept for the same signature.  A 1-D complex buffer
-    raises later, in the shift builders: pair-encode it."""
+    raises later on block-ELL cores, in `build_sparse_shift_ops`."""
     del core
     return np.asarray(shifts)
 
@@ -964,6 +999,25 @@ def _newton_step_fgmres(E, A, B, Ct, X: LowRank, K, shifts, shift_lus, inner_gmr
     return lr_compress(lr_with_capacity(X, max(X.r, capacity)), r_out=capacity)
 
 
+def _whole_rows(op, M: torch.Tensor) -> torch.Tensor:
+    """``M`` split by rows as the row-sharded operator ``op`` is, gathered
+    whole on every rank (`ShardedDiaOp.gather_rows`); ``M`` itself beside
+    an unsharded ``op``."""
+    gather = getattr(op, "gather_rows", None)
+    return M if gather is None else gather(M)
+
+
+def _same_on_every_rank(buf: np.ndarray, device) -> None:
+    """Raise unless every rank of the active mesh holds the same host
+    array (an all-gather; nothing without a mesh)."""
+    if active_mesh() is None:
+        return
+    t = torch.as_tensor(buf, device=device)
+    if not all(torch.equal(p, t) for p in row_allgather(t)):
+        raise RuntimeError("the ranks drew different shift sets")
+
+
+@on_problem_mesh
 def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
                                capacity: int = 192, maxiters: int = 60,
                                reltol: float | None = None, inexact: bool = True,
@@ -1007,14 +1061,28 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
     so banded cores solve in a low-precision core with iterative refinement
     (`DiaShiftOps`).
 
+    **Row shards** (ROADMAP item 10d): with DIA row shards of ``E`` and
+    ``A`` (`parallel.mesh.shard_operator`, ``block=PREC_BS``) and ``G`` and
+    ``Q`` split by rows in the same blocks, every rank calls this with its
+    shards and runs under their mesh.  Every host branch reads an
+    all-reduced value (the norms, the line search's, the rebuild gate's
+    ``stale_rel`` and ``‖BθK‖_F``) or a replicated one (ADI counts).
+    `PerStepHeuristic` gathers the pencil (`ShardedDiaOp.to_scipy`) and
+    ``B`` once, and ``K`` at each rebuild: every rank then draws the same
+    Penzl shifts from the same inputs, which an all-gather checks.  ``X``
+    comes out split by rows; ``info`` is the same on every rank.
+    ``inner_gmres`` has no row-sharded path.
+
     Returns (X, info): the residual history in the original problem's
     units, ADI iteration counts, the θ log, line-search λs, the shift
     rebuild count, ``newton_steps`` and ``converged``.
     """
     global shift_rebuild_seconds
     E, A, Q = prob.E, prob.A, prob.Q
-    n = Q.n
+    n = prob.n  # global: the rows of a shard are Q.L's
     dtype, dev = prob.G.L.dtype, prob.G.L.device
+    if inner_gmres is not None and mesh_of(E) is not None:
+        raise NotImplementedError("the FGMRES inner solver has no row-sharded path")
     notify(observer, "gare_start", prob, None)
 
     # --- scale equilibration (exact) ---------------------------------------
@@ -1062,8 +1130,9 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
 
     if per_step:
         strat = shifts
-        E_sp = E.to_scipy()
+        E_sp = E.to_scipy()  # gathered from row shards
         A_sp = A.to_scipy()
+        B_whole = _whole_rows(E, B)
         # Mean row 2-norm of E: converts shift magnitudes (pencil eigenvalue
         # units) to A-entry units for the feedback-perturbation gate below.
         e_row_scale = float(np.sqrt((E_sp.data ** 2).sum() / E_sp.shape[0]))
@@ -1082,7 +1151,7 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
             L=Gs.L, D=_in_dtype(theta, dtype) * Gs.D, k=Gs.k)
         return residual_gare_lowrank(E, A, Gt, Qs, X, r_out=cfg.r_res)
 
-    X = lr_zero(n, capacity, dtype, dev)
+    X = lr_zero(Q.L.shape[0], capacity, dtype, dev)
     X_prev = None
     theta = 1.0
     probing = True       # hump detection armed until the first accepted step
@@ -1228,15 +1297,15 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
             if K_at_shifts is None or K_at_shifts.shape != K.shape:
                 stale_rel = math.inf
             else:
-                stale_rel = float(torch.linalg.norm(K - K_at_shifts)) / max(
-                    float(torch.linalg.norm(K)), 1e-300)
+                stale_rel = float(row_norm(K - K_at_shifts)) / max(
+                    float(row_norm(K)), 1e-300)
             if lus is None or shifts is None:
                 feedback_matters = True  # first build is unconditional
             else:
                 m_in = Bt.shape[1]
-                Gm = Bt.T @ Bt
+                Gm = row_allreduce(Bt.T @ Bt)
                 p = float(torch.sqrt(torch.clamp(
-                    torch.sum(K * (Gm @ K)), min=0.0)))  # ‖BθK‖_F
+                    row_allreduce(torch.sum(K * (Gm @ K))), min=0.0)))  # ‖BθK‖_F
                 sh = np.asarray(shifts)
                 s_abs = np.abs(sh[:, 0]) if sh.ndim == 2 else np.abs(sh.real)
                 s_min = float(np.min(s_abs[s_abs > 0])) \
@@ -1263,15 +1332,21 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
                 rebuilt_before = shifts is not None
                 kp_r = max(12, strat.kp // 2) if rebuilt_before else strat.kp
                 km_r = max(12, strat.km // 2) if rebuilt_before else strat.km
+                Bt_whole = B_whole if theta == 1.0 else (
+                    _in_dtype(math.sqrt(theta), dtype) * B_whole)
+                # In K's own (row-major) layout: the host products of the
+                # Arnoldi round as the unsharded run's do.
+                K_whole = _whole_rows(E, K.T).T.contiguous()
                 t0 = time.perf_counter()
                 sv = heuristic_shifts_host(
                     E_sp, A_sp, strat.nshifts, kp_r, km_r,
-                    B=Bt.cpu().numpy(), K=K.cpu().numpy(),
+                    B=Bt_whole.cpu().numpy(), K=K_whole.cpu().numpy(),
                     lu_cache=shift_lu_cache, warm_start=rebuilt_before)
                 shift_rebuild_seconds += time.perf_counter() - t0
                 shifts = _shift_buffer(sv, dtype, strat.nshifts,
                                        real_only=not pair_shifts,
                                        pair_encode=pair_shifts)
+                _same_on_every_rank(shifts, dev)
                 lus = None  # release the old shifted cores before the build
                 lus = build_step_shift_solvers(E, A, shifts, _krylov_for(shifts),
                                                block_cache=block_cache)

@@ -354,7 +354,9 @@ def heuristic_shifts_host(E_sparse, A_sparse, nshifts: int, kp: int, km: int,
 
 def _heuristic_shifts(strategy: Heuristic, E, A) -> list:
     """Penzl's shifts from `_arnoldi_ritz` on ``E⁻¹A`` and ``A⁻¹E``, the
-    inverses applied by `prepare`d solvers on the operators' device."""
+    inverses applied by `prepare`d solvers on the operators' device.  The
+    Arnoldi runs in the default dtype (`config.default_dtype`), its
+    products and solves in the operators'."""
     E = as_operator(E)
     A = as_operator(A)
     n = E.shape[0]
@@ -363,11 +365,11 @@ def _heuristic_shifts(strategy: Heuristic, E, A) -> list:
     alg_A = strategy.alg_A if strategy.alg_A is not None else default_inner_alg(A)
     with timeit("shifts.arnoldi"):
         solver_E = prepare(E, alg_E)
-        Rp = _arnoldi_ritz(lambda x: solver_E.solve(A.mm(x)), n, strategy.kp,
-                           dtype, E.device, "E⁻¹A")
+        Rp = _arnoldi_ritz(lambda x: solver_E.solve(A.mm(x.to(A.dtype))).to(dtype), n,
+                           strategy.kp, dtype, E.device, "E⁻¹A")
         solver_A = prepare(A, alg_A)
-        Rm = _arnoldi_ritz(lambda x: solver_A.solve(E.mm(x)), n, strategy.km,
-                           dtype, E.device, "A⁻¹E")
+        Rm = _arnoldi_ritz(lambda x: solver_A.solve(E.mm(x.to(E.dtype))).to(dtype), n,
+                           strategy.km, dtype, E.device, "A⁻¹E")
     R = np.concatenate([Rp, 1.0 / Rm])
     return heuristic(R, strategy.nshifts)
 

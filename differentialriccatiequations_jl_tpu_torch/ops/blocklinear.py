@@ -502,7 +502,7 @@ def prepare(A, alg) -> object:
         AinvU = base.solve(A.U)
         m = A.U.shape[1]
         S = (A.alpha * torch.eye(m, dtype=AinvU.dtype, device=AinvU.device)
-             + A.V @ AinvU)
+             + row_allreduce(A.V @ AinvU))
         return SMWSolver(base=base, AinvU=AinvU, V=A.V,
                          schur=prepare(DenseOp(S), alg.inner))
     if isinstance(alg, Krylov):

@@ -121,13 +121,8 @@ class DiaOp(complex_route.SplitStorage):
             offsets=tuple(-o for o in reversed(self.offsets)))
 
     def to_scipy(self):
-        """scipy.sparse CSR copy (host-side helpers only).  scipy's DIA
-        convention indexes diagonals by column, which is ``data_t``."""
-        import scipy.sparse as sp
-
-        data = self.data_t[:, :self.n].cpu().numpy()
-        return sp.dia_matrix((data, np.asarray(self.offsets, np.int64)),
-                             shape=(self.n, self.n)).tocsr()
+        """scipy.sparse CSR copy (host-side helpers only)."""
+        return dia_scipy(self.data_t, self.offsets, self.n)
 
     def to_dense(self) -> torch.Tensor:
         n = self.n
@@ -139,6 +134,15 @@ class DiaOp(complex_route.SplitStorage):
             rows = torch.arange(i0, i1, device=self.device)
             M[rows, rows + off] += self.data[d, i0:i1]
         return M
+
+
+def dia_scipy(data_t: torch.Tensor, offsets, n: int):
+    """scipy.sparse CSR matrix from transposed diagonal storage: scipy's DIA
+    convention indexes diagonals by column, which is ``data_t``."""
+    import scipy.sparse as sp
+
+    return sp.dia_matrix((data_t[:, :n].cpu().numpy(), np.asarray(offsets, np.int64)),
+                         shape=(n, n)).tocsr()
 
 
 def _dia_mm(op: DiaOp, X, t: bool):

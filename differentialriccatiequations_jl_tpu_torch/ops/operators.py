@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from ..config import as_tensor
 from ..parallel.mesh import row_allreduce
 from .dia import DiaOp, dia_lin_comb, dia_scale
 from .sparse import BellOp, bell_lin_comb, bell_scale
@@ -24,9 +25,14 @@ from .sparse import BellOp, bell_lin_comb, bell_scale
 
 @dataclasses.dataclass(frozen=True)
 class DenseOp:
-    """Dense n×n operator."""
+    """Dense n×n operator.  A tensor ``M`` keeps its device; a numpy one
+    goes to the card (`config.as_tensor`): pass a CPU tensor to build on
+    the CPU."""
 
     M: torch.Tensor
+
+    def __post_init__(self):
+        object.__setattr__(self, "M", as_tensor(self.M))
 
     @property
     def shape(self):
@@ -100,16 +106,22 @@ def _scalar(alpha):
     return alpha if isinstance(alpha, torch.Tensor) else float(alpha)
 
 
-def lr_update(A, alpha, U: torch.Tensor, V: torch.Tensor) -> LowRankUpdateOp:
-    """``A + α⁻¹UV``."""
-    return LowRankUpdateOp(as_operator(A), _scalar(alpha), U, V)
+def lr_update(A, alpha, U: torch.Tensor, V: torch.Tensor, device=None) -> LowRankUpdateOp:
+    """``A + α⁻¹UV``.  Numpy ``A`` goes to ``device`` (`as_operator`), numpy
+    ``U`` and ``V`` to the operator's device unless ``device`` is given;
+    tensors keep theirs."""
+    A = as_operator(A, device)
+    dev = A.device if device is None else device
+    return LowRankUpdateOp(A, _scalar(alpha), as_tensor(U, dev), as_tensor(V, dev))
 
 
-def as_operator(A):
-    """Coerce a raw tensor or array to an operator; pass operators through."""
+def as_operator(A, device=None):
+    """Coerce a raw tensor or array to an operator; pass operators through.
+    A tensor keeps its device, a numpy array goes to ``device`` (default the
+    card: `config.resolve_device`)."""
     if hasattr(A, "mm") and not isinstance(A, torch.Tensor):
         return A
-    return DenseOp(torch.as_tensor(A))
+    return DenseOp(as_tensor(A, device))
 
 
 def restrict(op, Q: torch.Tensor) -> torch.Tensor:

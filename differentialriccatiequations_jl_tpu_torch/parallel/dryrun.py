@@ -32,13 +32,18 @@ sharded-sweep test configuration (``tests/test_sharded_gdre.py:140-153``);
 `run_sweep`, which shards any pencil in its blocks (`shard_pencil`:
 ``bs``-row blocks for block-ELL, ``PREC_BS`` for DIA); `solve_sharded`
 and `compress_sharded` run one block solve or `gram` compression on
-shards.
+shards; `newton_solve` runs the full compiled Kleinman–Newton on DIA row
+shards and `rail_newton` ``tests/test_torch_newton.py``'s benchmark
+configuration (`NEWTON`) through it, recording its shift sets
+(`recording_shift_sets`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -217,36 +222,43 @@ def _counted(run):
     return out, blocklinear.krylov_iterations - k0
 
 
-def rail_x0(E, C, dev, capacity: int):
-    """``X0 = lowrank(E⁻¹Cᵀ, 0.01·I)`` at ``capacity`` on ``dev``, f64."""
+def rail_x0(E, C, dev, capacity: int, dtype=torch.float64):
+    """``X0 = lowrank(E⁻¹Cᵀ, 0.01·I)`` at ``capacity`` on ``dev``, f64 (or
+    ``dtype``)."""
     import scipy.sparse.linalg as spla
 
     from ..lowrank import lowrank, lr_with_capacity
 
     L0 = spla.splu(E.tocsc()).solve(np.asarray(C).T.copy())
-    return lr_with_capacity(lowrank(torch.as_tensor(L0, device=dev),
-                                    0.01 * torch.eye(C.shape[0], dtype=torch.float64,
-                                                     device=dev)), capacity)
+    return lr_with_capacity(lowrank(torch.as_tensor(L0, dtype=dtype, device=dev),
+                                    0.01 * torch.eye(C.shape[0], dtype=dtype, device=dev)),
+                            capacity)
 
 
 def _dryrun_pencil(dev, n):
     """The JAX dry run's pencil and start: the Rail surrogate, X0 =
-    lowrank(E⁻¹Cᵀ, 0.01·I) at capacity 64, f64."""
+    lowrank(E⁻¹Cᵀ, 0.01·I) at capacity 64, in the default dtype
+    (`config.default_dtype`, f64 unless set)."""
+    from ..config import default_dtype
     from ..ops.dia import dia_pencil
     from ..utils.testmat import rail_surrogate
 
+    dt = default_dtype()
     E, A, B, C = rail_surrogate(n)
-    E_op, A_op = dia_pencil(E, A, device=dev)
-    return (E_op, A_op, torch.as_tensor(B, device=dev), torch.as_tensor(C, device=dev),
-            rail_x0(E, C, dev, 64))
+    E_op, A_op = dia_pencil(E, A, dtype=dt, device=dev)
+    return (E_op, A_op, torch.as_tensor(B, dtype=dt, device=dev),
+            torch.as_tensor(C, dtype=dt, device=dev), rail_x0(E, C, dev, 64, dt))
 
 
-def ros1_step_sharded(dev, n, mesh=None):
+def ros1_step_sharded(dev, n, mesh=None, route="pair"):
     """The JAX dry run's compiled Ros1 step (its ``parallel/dryrun.py:45-80``:
-    τ = 20, the pair-encoded buffer ``[−0.5, −1 ± 0.5i, −2]``,
-    `CompiledConfig(8, 4, 16)`, abstol 1e-8) at ``n``, on operands split
-    over ``mesh`` (in one process without one).  Returns (X, K gathered,
-    ADI iterations, residual, Krylov iterations)."""
+    τ = 20, the buffer ``[−0.5, −1 ± 0.5i, −2]``, `CompiledConfig(8, 4,
+    16)`, abstol 1e-8) at ``n``, on operands split over ``mesh`` (in one
+    process without one).  ``route``: ``"pair"`` the pair-encoded buffer
+    on banded cores (the JAX dry run's), ``"complex"`` the 1-D complex
+    buffer on complex banded cores, ``"uncached"`` the 1-D complex buffer
+    without cores.  Returns (X, K gathered, ADI iterations, residual,
+    Krylov iterations)."""
     from ..entry import SHIFTS
     from ..models.compiled import (
         PREC_BS, CompiledConfig, build_dia_shift_ops, pair_encode_shifts, ros1_step_compiled)
@@ -258,8 +270,9 @@ def ros1_step_sharded(dev, n, mesh=None):
     if mesh is not None:
         E, A, B, C = shard_pencil(mesh, E, A, B, C)
         X0 = shard_lowrank(mesh, X0, PREC_BS)
-    shifts = pair_encode_shifts(SHIFTS)
-    lus = build_dia_shift_ops(E, lin_comb(A, -1.0 / (2.0 * tau), E), shifts)
+    shifts = pair_encode_shifts(SHIFTS) if route == "pair" else SHIFTS
+    lus = None if route == "uncached" else build_dia_shift_ops(
+        E, lin_comb(A, -1.0 / (2.0 * tau), E), shifts)
     (X, K, iters, res), kry = _counted(lambda: ros1_step_compiled(
         E, A, B, C, X0, tau, shifts, 1e-8, cfg, lus))
     return (*gather_state(mesh, X, K, n), iters, float(res), kry)
@@ -294,6 +307,79 @@ def newton_step_sharded(dev, n, mesh=None):
     (X, iters, ares), kry = _counted(lambda: _newton_step_compiled(
         E, A, B, X0, K0, res, shifts, 1e-3, cfg, lus))
     return (*gather_state(mesh, X, feedback_K(E, B, X), n), iters, float(ares), kry)
+
+
+@contextlib.contextmanager
+def recording_shift_sets():
+    """Within the block, every shift buffer that the compiled solvers build
+    shifted cores for (`models.compiled.build_step_shift_solvers`) is
+    appended, as a host copy, to the list it yields: a Newton solve's
+    initial and rebuilt shift sets, in order."""
+    from ..models import compiled
+
+    sets, build = [], compiled.build_step_shift_solvers
+
+    def recording(E, F_base, shifts, *args, **kw):
+        sets.append(np.array(shifts))
+        return build(E, F_base, shifts, *args, **kw)
+
+    compiled.build_step_shift_solvers = recording
+    try:
+        yield sets
+    finally:
+        compiled.build_step_shift_solvers = build
+
+
+def newton_solve(E_op, A_op, G, Q, mesh=None, **kw):
+    """`solve_gare_newton_compiled` on ``GAREProblem(E, A, G, Q)`` (``kw``
+    its keywords), with DIA ``E``, ``A`` split over ``mesh`` first in
+    ``PREC_BS``-row blocks and ``G``, ``Q`` by rows in the same blocks (in
+    one process without one).  Returns (X, ``K = BᵀXE`` with ``B = G.L``,
+    both gathered; info; the shift sets of its rebuilds; Krylov
+    iterations)."""
+    from ..models.compiled import PREC_BS, solve_gare_newton_compiled
+    from ..models.problems import GAREProblem
+    from ..models.rosenbrock_lowrank import feedback_K
+    from .mesh import shard_lowrank, shard_operator
+
+    n = E_op.n
+    if mesh is not None:
+        E_op, A_op = (shard_operator(mesh, op, block=PREC_BS) for op in (E_op, A_op))
+        G, Q = (shard_lowrank(mesh, Y, PREC_BS) for Y in (G, Q))
+    with recording_shift_sets() as sets:
+        (X, info), kry = _counted(lambda: solve_gare_newton_compiled(
+            GAREProblem(E_op, A_op, G, Q), **kw))
+    return (*gather_state(mesh, X, feedback_K(E_op, G.L, X), n), info, sets, kry)
+
+
+#: `rail_newton`'s configuration: ``tests/test_torch_newton.py``'s benchmark
+#: solve (``G = lowrank(1000·B)``, ``Q = lowrank(Cᵀ)``, closed-loop shifts
+#: ``PerStepHeuristic(10, 12, 12)``, `CompiledConfig(120, 10, 32)`, capacity
+#: 128, reltol 1e-10).
+NEWTON = dict(gscale=1000.0, shifts=(10, 12, 12), cfg=(120, 10, 32), capacity=128,
+              reltol=1e-10)
+
+
+def rail_newton(dev, n, mesh=None, maxiters=60, **config):
+    """`NEWTON`'s compiled Kleinman–Newton (any entry overridden by
+    ``config``) on the Rail surrogate's DIA pencil at ``n``, at most
+    ``maxiters`` Newton steps, on operands split over ``mesh`` (in one
+    process without one).  Returns `newton_solve`'s result."""
+    from ..lowrank import lowrank
+    from ..models.compiled import CompiledConfig, PerStepHeuristic
+    from ..ops.dia import dia_pencil
+    from ..utils.testmat import rail_surrogate
+
+    c = {**NEWTON, **config}
+    E, A, B, C = rail_surrogate(n)
+    E_op, A_op = dia_pencil(E, A, device=dev)
+    G = lowrank(torch.as_tensor(c["gscale"] * B, device=dev))
+    Q = lowrank(torch.as_tensor(C.T.copy(), device=dev))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the step cap's "did not converge"
+        return newton_solve(E_op, A_op, G, Q, mesh, shifts=PerStepHeuristic(*c["shifts"]),
+                            cfg=CompiledConfig(*c["cfg"]), capacity=c["capacity"],
+                            maxiters=maxiters, reltol=c["reltol"])
 
 
 def run_sweep(method, E_op, A_op, B, C, X0, shifts, mesh=None, *, tau, nsteps, cfg,

@@ -92,6 +92,16 @@ def on_operator_mesh(fn):
     return run
 
 
+def on_problem_mesh(fn):
+    """Run ``fn(prob, ...)`` under ``use_mesh(mesh_of(prob.E))``: the
+    whole-solver counterpart of `on_operator_mesh`."""
+    @functools.wraps(fn)
+    def run(prob, *args, **kw):
+        with use_mesh(mesh_of(prob.E)):
+            return fn(prob, *args, **kw)
+    return run
+
+
 def row_allreduce(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over the ranks of the active mesh (a new tensor),
     or ``t`` itself without one."""
@@ -121,8 +131,10 @@ def row_allgather(t: torch.Tensor) -> list[torch.Tensor]:
 
 def row_norm(t: torch.Tensor) -> torch.Tensor:
     """Frobenius norm of a tensor split by rows (or columns) over the
-    active mesh; ``torch.linalg.norm`` without one."""
-    if _active is None:
+    active mesh; ``torch.linalg.norm`` without one or with one rank (whose
+    shard is the whole tensor: a one-rank run then takes the unsharded
+    run's roundings, as `lowrank._tsqr` does)."""
+    if _active is None or _active.size() == 1:
         return torch.linalg.norm(t)
     return torch.sqrt(row_allreduce(torch.linalg.norm(t) ** 2))
 

@@ -37,9 +37,9 @@ import torch.nn.functional as F
 
 from ..kernels import bell_spmm as k2
 from ..kernels import dia_spmm as k1
-from ..ops.dia import DiaOp
+from ..ops.dia import DiaOp, dia_scipy
 from ..ops.sparse import BellOp
-from .mesh import active_mesh, collectives, rank_and_size, row_range
+from .mesh import active_mesh, collectives, rank_and_size, row_range, unshard_tall
 
 
 def _smallest_shard(n: int, world: int, block: int = 1) -> int:
@@ -49,8 +49,12 @@ def _smallest_shard(n: int, world: int, block: int = 1) -> int:
 def halo_exchange(X_l: torch.Tensor, H: int, mesh, dim: int = 0) -> torch.Tensor:
     """``[the previous rank's last H | X_l | the next rank's first H]``
     along ``dim`` (0: rows of an ``(nl, q)`` operand; 1: columns of a
-    lane-major ``(q, nl)`` one), zeros where there is no neighbour."""
+    lane-major ``(q, nl)`` one), zeros where there is no neighbour.  A
+    complex operand travels as its real view."""
     import torch.distributed as dist
+
+    if X_l.is_complex():
+        return torch.view_as_complex(halo_exchange(torch.view_as_real(X_l), H, mesh, dim))
 
     rank, world = mesh.get_local_rank(), mesh.size()
     shape = list(X_l.shape)
@@ -113,11 +117,13 @@ class ShardedDiaOp(DiaOp):
     of its lane-major states), `diag` and `diag_blocks` are its own rows'
     (the global blocks when ``r0`` is a multiple of the block size), and
     `adjoint`, `ops.dia.dia_lin_comb` and ``dataclasses.replace`` keep the
-    shard."""
+    shard.  `to_scipy` gathers the whole operator (a collective); there is
+    no `to_dense`."""
 
     rows: tuple = (0, 0)  # (r0, r1)
     H: int = 0
     mesh: object = None
+    block: int = 1  # the rows come in whole blocks of this many (`row_range`)
 
     @classmethod
     def from_op(cls, mesh, op, rank: int, world: int, block: int = 1) -> "ShardedDiaOp":
@@ -133,7 +139,7 @@ class ShardedDiaOp(DiaOp):
 
         return cls(data=pad(op.data), data_t=pad(op.data_t), offsets=op.offsets,
                    n=op.n, nnz_=op.nnz_, symmetric=op.symmetric, rows=(r0, r1), H=H,
-                   mesh=mesh)
+                   mesh=mesh, block=block)
 
     @property
     def N(self) -> int:
@@ -162,7 +168,19 @@ class ShardedDiaOp(DiaOp):
     def to_dense(self):
         raise NotImplementedError("a row shard has no whole form: gather the operator")
 
-    to_scipy = to_dense
+    def gather_rows(self, M_l: torch.Tensor) -> torch.Tensor:
+        """The whole ``(n, ...)`` tensor from every rank's rows ``M_l``, split
+        as this shard's rows are (an all-gather: every rank calls it)."""
+        if self.mesh is None:
+            raise ValueError("an emulated shard has no gather")
+        return unshard_tall(self.mesh, M_l, self.n, self.block)
+
+    def to_scipy(self):
+        """scipy.sparse CSR copy of the whole operator, on every rank: the
+        ranks' diagonals gathered (`gather_rows`), then `DiaOp.to_scipy`."""
+        s = slice(self.H, self.H + self.N)
+        data_t = self.gather_rows(self.data_t[:, s].T).T
+        return dia_scipy(data_t, self.offsets, self.n)
 
     def extend(self, X: torch.Tensor) -> torch.Tensor:
         """The halo-extended operand the exchange delivers, sliced from the

@@ -16,6 +16,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..config import default_dtype
+
 
 def _rng(seed):
     return np.random.default_rng(seed)
@@ -133,8 +135,10 @@ def conv_diff_surrogate(n: int, *, m: int = 7, q: int = 6, peclet: float = 2.0,
 
 
 def rail_surrogate_dense(n: int, *, device, **kw):
-    """`rail_surrogate` as dense float64 tensors ``(E, A, B, C)`` on
-    ``device`` (``"cpu"`` or ``"cuda"``), for the dense solvers."""
+    """`rail_surrogate` as dense tensors ``(E, A, B, C)`` of the default
+    dtype (`config.default_dtype`, f64 unless set) on ``device`` (``"cpu"``
+    or ``"cuda"``), for the dense solvers."""
     E, A, B, C = rail_surrogate(n, **kw)
-    return tuple(torch.as_tensor(np.asarray(M), dtype=torch.float64, device=device)
+    dt = default_dtype()
+    return tuple(torch.as_tensor(np.asarray(M), dtype=dt, device=device)
                  for M in (E.toarray(), A.toarray(), B, C))

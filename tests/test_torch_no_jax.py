@@ -105,8 +105,11 @@ sh.local_mm(sh.extend(Y)); sh.local_mm(sh.extend(Y), t=True)
 sb = shard_operator(None, bE, rank=0, world=2)
 sb.local_mm(sb.extend(Y)); sb.local_mm(sb.extend(Y[:, 0]), t=True)
 assert k1.launches == 0 and k2.launches == 0, (k1.launches, k2.launches)
-import torch.distributed as dist
+from differentialriccatiequations_jl_tpu_torch import __version__, config
+from differentialriccatiequations_jl_tpu_torch.ops import prepare_shifted
 from differentialriccatiequations_jl_tpu_torch.parallel import dryrun
+assert config.default_dtype() == torch.float64 and callable(prepare_shifted)
+import torch.distributed as dist
 from differentialriccatiequations_jl_tpu_torch.parallel.mesh import (
     collectives, make_mesh, use_mesh)
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{dryrun.free_port()}",

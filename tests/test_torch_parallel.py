@@ -36,6 +36,7 @@ from differentialriccatiequations_jl_tpu_torch.models.parareal import (
 from differentialriccatiequations_jl_tpu_torch.models.problems import GDREProblem
 from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_shifts_host
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_from_scipy, dia_pencil
+from differentialriccatiequations_jl_tpu_torch.ops.operators import DenseOp, as_operator, lr_update
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import (
     bell_from_scipy, bell_pencil)
 from differentialriccatiequations_jl_tpu_torch.parallel.dryrun import run_ranks
@@ -188,9 +189,13 @@ def test_make_mesh_needs_a_card_or_cpu():
 def test_constructors_default_to_the_card():
     """The operator and factor constructors put their output on the card
     when no device is given, and raise where there is none (no silent CPU
-    fallback); ``device="cpu"`` builds on the CPU."""
+    fallback); ``device="cpu"`` builds on the CPU.  `lowrank`, `DenseOp`,
+    `lr_update` and `as_operator` put numpy input there too; `DenseOp`
+    builds on the CPU from a CPU tensor, and each of them keeps a tensor on
+    its own device."""
     E, A, _, _ = rail_surrogate(64)
     data = np.ones((1, 4))
+    M, U = np.eye(4), np.ones((4, 2))
     builders = [
         lambda **kw: dia_pencil(E, A, **kw)[0],
         lambda **kw: dia_from_scipy(A, **kw),
@@ -199,6 +204,10 @@ def test_constructors_default_to_the_card():
         lambda **kw: convert.dia_op_from_numpy(data, data, (0,), 4, 4, **kw),
         lambda **kw: convert.lowrank_from_numpy(np.ones((4, 2)), np.eye(2), 2, **kw),
         lambda **kw: lr_zero(4, 2, torch.float64, **kw),
+        lambda **kw: lowrank(U, np.eye(2), **kw),
+        lambda **kw: DenseOp(M if not kw else torch.as_tensor(M, **kw)),
+        lambda **kw: lr_update(M, 2.0, U, U.T, **kw),
+        lambda **kw: as_operator(M, **kw),
     ]
     for build in builders:
         assert build(device="cpu").device.type == "cpu"
@@ -207,3 +216,12 @@ def test_constructors_default_to_the_card():
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 build()
+    # A tensor keeps its device; numpy factors of an update follow its
+    # operator.
+    Mt = torch.as_tensor(M)
+    X = torch.ones((4, 1), dtype=torch.float64)
+    for op in (DenseOp(Mt), as_operator(Mt), lr_update(DenseOp(Mt), 2.0, U, U.T)):
+        assert op.device.type == "cpu" and op.mm(X).shape == (4, 1)
+    assert lowrank(torch.as_tensor(U), np.eye(2)).L.device.type == "cpu"
+    upd = lr_update(DenseOp(Mt), 2.0, U, U.T)
+    assert upd.U.device.type == "cpu" and upd.V.device.type == "cpu"

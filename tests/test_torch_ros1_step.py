@@ -25,6 +25,7 @@ from differentialriccatiequations_jl_tpu_torch.entry import CONFIG, SHIFTS, TAU,
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1  # noqa: E402
 from differentialriccatiequations_jl_tpu_torch.models import compiled as tcomp  # noqa: E402
 from differentialriccatiequations_jl_tpu_torch.ops import operators as topers  # noqa: E402
+from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil  # noqa: E402
 from differentialriccatiequations_jl_tpu_torch.utils.testmat import rail_surrogate  # noqa: E402
 
 jcomp = importlib.import_module("differentialriccatiequations_jl_tpu.models.compiled")
@@ -93,7 +94,13 @@ def test_step_real_buffer(jax_steps):
 
 
 def test_complex_buffer_raises():
+    """A 1-D complex buffer raises on block-ELL cores, which take real
+    shifts only; banded cores take it (complex data, BiCGStab)."""
     _, args = entry("cpu")
     E_op, A_op = args[:2]
-    with pytest.raises(ValueError, match="pair-encode"):
-        tcomp.build_dia_shift_ops(E_op, A_op, SHIFTS)
+    ops = tcomp.build_dia_shift_ops(E_op, A_op, SHIFTS)
+    assert ops.data.is_complex() and ops.cfg.method == "bicgstab"
+    E, A, _, _ = rail_surrogate(256)
+    bE, bA = bell_pencil(E, A, bs=16, device="cpu")
+    with pytest.raises(ValueError, match="real shifts only"):
+        tcomp.build_sparse_shift_ops(bE, bA, SHIFTS)

@@ -45,13 +45,6 @@ EPS = float(np.finfo(np.float64).eps)
 SHIFT_TOL, SHIFT_GATE = 1e-10, 1e-6
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    # Beside the JAX package's CPU thread pool, torch's own pool slows the
-    # small products down; never raise the count again (MKL stalls).
-    torch.set_num_threads(1)
-
-
 def _recorder(mod):
     class Rec(mod.Observer):
         def __init__(self):

@@ -50,16 +50,6 @@ N, G = 50, 4
 GRID = [(True, True), (True, False), (False, True), (False, False)]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Small dense products on one thread: beside the JAX package's CPU
-    thread pool, torch's own pool only contends (the n = 40 dense sweeps
-    ran 50× slower).  Not restored: setting more than one thread after
-    start-up makes batched CPU LUs and inverses stall in MKL (torch 2.13),
-    and one thread is what those take fastest here anyway."""
-    torch.set_num_threads(1)
-
-
 def _rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return np.linalg.norm(a - b) / np.linalg.norm(b)

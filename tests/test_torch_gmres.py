@@ -64,13 +64,6 @@ jlr = importlib.import_module("differentialriccatiequations_jl_tpu.lowrank")
 JS = J.Shifts
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    # Beside the JAX package's CPU thread pool, torch's own pool slows the
-    # small products down; never raise the count again (MKL stalls).
-    torch.set_num_threads(1)
-
-
 def _rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return np.linalg.norm(a - b) / np.linalg.norm(b)

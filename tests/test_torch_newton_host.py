@@ -33,13 +33,6 @@ JS = J.Shifts
 RELTOL = 1e-10
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    # Beside the JAX package's CPU thread pool, torch's own pool slows the
-    # small products down; never raise the count again (MKL stalls).
-    torch.set_num_threads(1)
-
-
 def _recorder(mod):
     class Rec(mod.Observer):
         def __init__(self):

@@ -62,13 +62,6 @@ DELTA_RTOL = 1e-6
 SHARD_TOL = 1e-12
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    # Beside the JAX package's CPU thread pool, torch's own pool slows the
-    # small products down; never raise the count again (MKL stalls).
-    torch.set_num_threads(1)
-
-
 def _inputs(nsteps=NSTEPS):
     E, A, B, C = rail_surrogate(N)
     sv = heuristic_shifts_host(E, A, 8, 10, 10)

@@ -171,7 +171,6 @@ def spawned():
     background: their collectives mostly wait (on a peer, on a wake-up), so
     the two overlap, and with them the JAX references of the tests that
     take this fixture."""
-    torch.set_num_threads(1)
     with ThreadPoolExecutor(2) as pool:
         yield [pool.submit(dryrun.run_ranks, sharded_runs, 2, "cpu", args=(part,))
                for part in ("sweeps", "small")]

@@ -86,13 +86,11 @@ def newton_rank(dev, n=N):
 
 @pytest.fixture(scope="module")
 def runs():
-    torch.set_num_threads(1)
     return dryrun.run_ranks(newton_rank, 2, "cpu")
 
 
 @pytest.fixture(scope="module")
 def one_process():
-    torch.set_num_threads(1)
     return _numpy_newton(dryrun.rail_newton(torch.device("cpu"), N))
 
 

@@ -149,7 +149,6 @@ def sharded_runs(dev, n=N, reference=True):
 
 @pytest.fixture(scope="module")
 def runs():
-    torch.set_num_threads(1)
     return dryrun.run_ranks(sharded_runs, 2, "cpu")
 
 

@@ -47,13 +47,6 @@ N = 48
 JAX_TOL = 1e-10
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    # Beside the JAX package's CPU thread pool, torch's own pool slows the
-    # small products down; never raise the count again (MKL stalls).
-    torch.set_num_threads(1)
-
-
 def _t(x):
     return torch.as_tensor(np.asarray(x), dtype=torch.float64)
 

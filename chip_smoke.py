@@ -108,7 +108,21 @@ both compilers started together, and then:
     θ-stages, rebuilds and shift sets, K within 1e-10, each last residual
     confirmed independently), walls, collectives per step and peaks
     printed; 19d that Newton at n=256 over 2 gloo ranks on the host's CPU
-    against one process.
+    against one process;
+20. runs the fused CG iteration (`kernels.cg_fused`): 20a each of its four
+    kernels against its plain version at n=79841, q = 7 and 48, f64 and f32,
+    on DIA's lane-major state (block-Jacobi and Jacobi) and block-ELL's
+    column-major one, timed at q = 48 f64 beside the plain versions and
+    the bound; 20b one CG solve at q = 48 and q = 7 through the fused
+    iteration and the present loop, each a wall per CG iteration and its
+    launches per CG iteration (the profiler's kernels and copies, and the
+    launch counters); 20c one DIA Ros1 step (all-real buffer, CG) and one
+    block-ELL Ros2 step through both: equal ADI and Krylov iterations, K
+    and LDLᵀ within 1e-12; 20d phase 15's compiled GALE with the f32 core
+    and with the f64 core through both: equal ADI iterations, Krylov
+    iterations within one, LDLᵀ within 1e-9, each residual confirmed
+    independently.  The kernels line's ``cg_fused`` entry gives the fused
+    kernels' launches on each main path (phases 3, 5, 7, 10, 11 and 15).
 
 Phases 10, 11, 14 and 15 hold each solver's residual against an
 independent evaluation (`residual`).  Every full-size path (phases 3, 5, 7,
@@ -122,7 +136,7 @@ builds the kernels and runs phase 7 alone (at another capacity of ``X``);
 ``--host-only`` builds them and runs phases 8 to 11, ``--dense-only``
 phases 12 and 13, ``--gmres-only`` phase 14 and ``--mixed-only`` phase 15
 (both flags: both phases), ``--parareal-only`` phase 16, ``--sharded-only``
-phases 17 and 18, ``--uncached-only`` phase 19.
+phases 17 and 18, ``--uncached-only`` phase 19, ``--krylov-only`` phase 20.
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -132,6 +146,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -155,7 +170,7 @@ from differentialriccatiequations_jl_tpu_torch import (
     Shifts, init, residual, solve)
 from differentialriccatiequations_jl_tpu_torch.entry import SHIFTS, entry
 from differentialriccatiequations_jl_tpu_torch.kernels import bell_spmm as k2
-from differentialriccatiequations_jl_tpu_torch.kernels import build, complex_route
+from differentialriccatiequations_jl_tpu_torch.kernels import build, cg_fused, complex_route
 from differentialriccatiequations_jl_tpu_torch.kernels import dia_spmm as k1
 from differentialriccatiequations_jl_tpu_torch.lowrank import (
     LowRank, _mask_cols, lowrank, lr_add, lr_compress, lr_norm, lr_scale, lr_with_capacity,
@@ -204,6 +219,7 @@ KERNELS = {
                  "differentialriccatiequations_jl_tpu/ops/dia.py:281"),
     "bell_spmm": ("differentialriccatiequations_jl_tpu_torch/csrc/bell_spmm.cu",
                   "differentialriccatiequations_jl_tpu/ops/sparse.py:164"),
+    "cg_fused": ("differentialriccatiequations_jl_tpu_torch/csrc/cg_fused.cu", None),
 }
 # Kernel vs plain: K1 sums in the plain version's order, only FMA
 # contraction differs.  K2 in f64 sums over slots, then over the inner
@@ -479,7 +495,9 @@ def phase_build():
         paths = list(pool.map(build.build, KERNELS))
     k1._kernel(torch.float64)
     k2._kernel(torch.float64)
-    log(f"[build] K1 and K2 built and loaded in {time.perf_counter() - t0:.2f} s: "
+    cg_fused._kernel("pap", torch.float64)
+    log(f"[build] K1, K2 and the fused CG kernels built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s: "
         + ", ".join(p.name for p in paths))
     for name in KERNELS:
         for line in ptxas_report(build.build_log(name)):
@@ -861,10 +879,11 @@ def phase_full_step(E, A, B, C, dev):
         f"nnz {E_op.nnz}, offsets {E_op.offsets}")
 
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0  # the main path's run starts here
+    reset_launches()  # the main path's run starts here
     blocklinear.krylov_iterations = 0
     inputs, rows = run_full_steps(E_op, A_op, B_d, C_d, X0, ops)
     launches = k1.launches  # the main path's run ends here
+    fused = fused_path("dia_ros1")
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     for j, (name, wall, iters, res, Xn, K, nl, ns, _) in enumerate(rows):
@@ -880,7 +899,8 @@ def phase_full_step(E, A, B, C, dev):
                            f"start value {start:.3e}")
         check(nl > 0, f"step {j + 1}: K1 was not launched")
     log(f"[n={N_FULL}] peak device memory {peak:.2f} GiB; K1 launches in the "
-        f"run {launches}")
+        f"run {launches}, the fused CG kernels' {fused}")
+    check(fused > 0, f"[n={N_FULL}] the all-real step's CG did not launch the fused kernels")
     return launches
 
 
@@ -953,7 +973,7 @@ def phase_bell_full(E, A, B, C, E_b, dev):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = 0  # the block-ELL path's run starts here
+    reset_launches()  # the block-ELL path's run starts here
     blocklinear.krylov_iterations = 0
     mark.update(t=time.perf_counter(), k2=0, kry=0)
     t0 = mark["t"]
@@ -961,6 +981,7 @@ def phase_bell_full(E, A, B, C, E_b, dev):
                                    capacity=CAPACITY, save_state=True, observer=observer)
     torch.cuda.synchronize()
     launches, k1_launches = k2.launches, k1.launches  # the run ends here
+    fused = fused_path("bell_ros2")
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -978,7 +999,9 @@ def phase_bell_full(E, A, B, C, E_b, dev):
         check(res < start, f"bell step {i}: residual {res:.3e} not below its start {start:.3e}")
         check(nl > 0, f"bell step {i}: K2 was not launched")
     log(f"[n={N_FULL} bell] {FULL_STEPS} steps in {wall:.3f} s (setup included); peak device "
-        f"memory {peak:.2f} GiB; K2 launches in the run {launches}, K1 {k1_launches}")
+        f"memory {peak:.2f} GiB; K2 launches in the run {launches}, K1 {k1_launches}, "
+        f"the fused CG kernels' {fused}")
+    check(fused > 0, f"[n={N_FULL} bell] the CG did not launch the fused kernels")
     return launches
 
 
@@ -1078,7 +1101,7 @@ def phase_newton_full(E, A, B, C, dev, capacity):
         f"maxiters {NEWTON_MAXITERS}, {NEWTON_SHIFTS}")
     steps = StepLog()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0  # the Newton path's run starts here
+    reset_launches()  # the Newton path's run starts here
     blocklinear.krylov_iterations = 0
     compiled.shift_rebuild_seconds = 0.0
     t0 = time.perf_counter()
@@ -1086,6 +1109,7 @@ def phase_newton_full(E, A, B, C, dev, capacity):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = k1.launches  # the run ends here
+    fused = fused_path("gare_newton")
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     rows = steps.rows + [(None, t0 + wall, launches, blocklinear.krylov_iterations,
@@ -1119,8 +1143,9 @@ def phase_newton_full(E, A, B, C, dev, capacity):
         f"{['%.6e' % t for t in info['thetas']]}, line-search lambdas "
         f"{['%.3e' % lam for lam in info['linesearch_lams']]}")
     log(f"[n={N_FULL} newton] final rank {X.k}/{X.r} (capacity reached: {X.k == X.r}); "
-        f"K1 launches {launches}, Krylov iterations {blocklinear.krylov_iterations}; "
-        f"peak device memory {peak:.2f} GiB")
+        f"K1 launches {launches}, the fused CG kernels' {fused}, Krylov iterations "
+        f"{blocklinear.krylov_iterations}; peak device memory {peak:.2f} GiB")
+    check(fused > 0, f"[n={N_FULL} newton] the CG did not launch the fused kernels")
     log(f"[n={N_FULL} newton] residual history {['%.6e' % (h / hist[0]) for h in hist]}")
     finite = all(bool(torch.isfinite(t).all()) for t in (X.L, X.D, K))
     check(finite, "n=79841 Newton: non-finite X or K")
@@ -1448,13 +1473,14 @@ def run_full_host(kind, prob, alg, kern, tag):
     torch.cuda.reset_peak_memory_stats()
     timers.reset()
     timers.enable(True)
-    k1.launches = k2.launches = 0  # this path's run starts here
+    reset_launches()  # this path's run starts here
     try:
         with ProductLog() as products:
             out = run_host(kind, prob, alg)
     finally:
         timers.enable(False)
     out["launches"] = kern.launches  # and ends here
+    out["fused_launches"] = cg_fused.launches
     out["other_launches"] = (k2 if kern is k1 else k1).launches
     out["peak"] = torch.cuda.max_memory_allocated() / 2**30
     out["timers"] = timers.report()
@@ -1479,6 +1505,7 @@ def phase_host_full(E, A, B, C, dev):
         tag = f"[host n={N_FULL} dia {kind}]"
         out = run_full_host(kind, prob, alg, k1, tag)
         launches[key] = report_host(tag, kind, prob, out, N_FULL, k1)
+        FUSED_PATHS[key] = out["fused_launches"]
         check(out["other_launches"] == 0, f"{tag}: K2 launched on the DIA path")
         worst = max(worst, out["max_abs"]["K1"])
     return launches, worst
@@ -1490,6 +1517,7 @@ def phase_host_bell(E, A, B, C, E_b):
     tag = f"[host n={N_FULL} bell gale]"
     out = run_full_host("gale", prob, ADI(shifts=HOST_SHIFTS), k2, tag)
     launches = report_host(tag, "gale", prob, out, N_FULL, k2)
+    FUSED_PATHS["gale_adi_host_bell"] = out["fused_launches"]
     check(out["other_launches"] == 0, f"{tag}: K1 launched on the block-ELL path")
     return {"gale_adi_host_bell": launches}, out["max_abs"]["K2"]
 
@@ -1720,10 +1748,24 @@ def phase_dense_full():
 
 
 def reset_launches():
-    """Every launch count of K1 and K2 to 0 (a path's run starts here)."""
+    """Every launch count of K1, K2 and the fused CG kernels to 0 (a path's
+    run starts here)."""
     for kern in (k1, k2):
         kern.launches = 0
         kern.launches_by_dtype.update({torch.float64: 0, torch.float32: 0})
+    cg_fused.launches = 0
+
+
+#: The fused CG kernels' launches of each main path (`fused_path`), for the
+#: kernels line's ``cg_fused`` entry.
+FUSED_PATHS: dict[str, int] = {}
+
+
+def fused_path(key) -> int:
+    """Records under ``key`` the fused CG kernels' launches since the last
+    `reset_launches` (a path's run ends here) and returns them."""
+    FUSED_PATHS[key] = cg_fused.launches
+    return FUSED_PATHS[key]
 
 
 def dtype_launches(kern) -> dict:
@@ -2082,6 +2124,7 @@ def phase_mixed_full(E, A, B, C, dev):
         reset_launches()  # this path's run starts here
         out = run_gale_mixed(E, A, C, dev, sd)
         k1_paths[key] = dtype_launches(k1)  # and ends here
+        fused_path(key)
         peak = torch.cuda.max_memory_allocated() / 2**30
         X = out["X"]
         log(f"{tag}: wall {out['wall']:.3f} s (set-up {out['setup']:.3f} s: Penzl shifts, "
@@ -2117,6 +2160,7 @@ def phase_mixed_full(E, A, B, C, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1_paths["gare_newton_f32_core"] = dtype_launches(k1)  # and ends here
+    fused_path("gare_newton_f32_core")
     info["krylov"] = blocklinear.krylov_iterations - kry0
     report_newton(tag, prob, X, info, wall, k1_paths["gare_newton_f32_core"],
                   torch.cuda.max_memory_allocated() / 2**30, N_FULL)
@@ -2143,6 +2187,7 @@ def phase_mixed_full(E, A, B, C, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k2_paths[f"bell_refined_solve_{name.split()[0]}"] = dtype_launches(k2)  # and ends here
+        fused_path(f"bell_refined_solve_{name.split()[0]}")
         res = float(torch.linalg.norm(F.mm(x) - W) / torch.linalg.norm(W))
         sols[name] = x
         log(f"{tag} {name}: wall {wall:.3f} s, Krylov iterations "
@@ -2618,11 +2663,13 @@ def run_twins(tag, run, mesh):
     """``run(None)``, then ``run(mesh)``: each a main path whose launches
     are counted from 0 (reset just before it, read just after it), and
     whose products are held to the plain versions after it (`ProductLog`).
+    The unsharded run takes the CG loop a mesh takes (`unfused`), so the
+    twins share their roundings (phase 20 holds the fused iteration to it).
     Returns ({"unsharded"/"sharded": (result, K1 and K2 launches by
     dtype)}, {kernel: max abs error})."""
     outs, errs = {}, {}
     for name, m in (("unsharded", None), ("sharded", mesh)):
-        with ProductLog() as products:
+        with ProductLog() as products, (unfused() if m is None else contextlib.nullcontext()):
             reset_launches()  # this path's run starts here
             out = run(m)
             torch.cuda.synchronize()
@@ -3151,6 +3198,333 @@ def phase_uncached(E, A, B, C, dev, k1_launches, k2_launches):
     return errs
 
 
+# Phase 20: the fused CG iteration.  Kernel vs plain: the kernels' sums end
+# in a fixed order of their own, torch's in another, and the block product
+# sums in the order of b (the plain one through cuBLAS); both within
+# `REL_TOL`.  A step through the fused iteration against the present loop:
+# the same CG, only the last bits of the dots differ.
+FUSED_WIDTHS = (7, 48)
+FUSED_MU = -0.5
+FUSED_STEP_TOL = 1e-12
+
+
+@contextlib.contextmanager
+def unfused():
+    """The present `_cg` loop in place of the fused iteration: the route's
+    choice (`KrylovSolver._fused`) patched to refuse every solve."""
+    choose = blocklinear.KrylovSolver._fused
+    blocklinear.KrylovSolver._fused = lambda self, B: False
+    try:
+        yield
+    finally:
+        blocklinear.KrylovSolver._fused = choose
+
+
+def fused_cases(E, A, dev):
+    """{(format, preconditioner, dtype): (operator, prec, axis)}: ``A + μE``
+    (= ``Aᵀ + μEᵀ``: the surrogate is symmetric) at n=79841 in DIA (the
+    lane-major state) and block-ELL (the column-major one), with its
+    128-wide block-Jacobi inverses, and on DIA its Jacobi diagonal too."""
+    dt = torch.float64
+    E_d, A_d = dia_pencil(E, A, dtype=dt, device=dev)
+    E_b, A_b = bell_pencil(E, A, bs=BS, dtype=dt, device=dev)
+    cases = {}
+    for fmt, op, axis in (("dia", lin_comb(A_d, FUSED_MU, E_d), 1),
+                          ("bell", lin_comb(A_b, FUSED_MU, E_b), 0)):
+        for dt in (torch.float64, torch.float32):
+            o = op_astype(op, dt)
+            blocks = o.diag_blocks(BS) if fmt == "dia" else o.diag_blocks()
+            cases[(fmt, "block_jacobi", dt)] = (o, blocklinear.block_jacobi_inverses(blocks), axis)
+            if fmt == "dia":
+                cases[(fmt, "jacobi", dt)] = (o, 1.0 / o.diag(), axis)
+    return cases
+
+
+def fused_pair(op, prec, axis, q, dt):
+    """A workspace of random state on the card for the kernels, its twin
+    for the plain versions (one-entry sums), and the product ``a = F·p``."""
+    gen = torch.Generator(device=CARD).manual_seed(20 + q)
+    shape = (q, op.N) if axis == 1 else (op.n, q)
+
+    def rnd():
+        return torch.randn(shape, generator=gen, dtype=dt, device=CARD)
+
+    ws = cg_fused.workspace(rnd(), rnd(), prec, -1.0, axis, torch.ones((), dtype=dt, device=CARD))
+    ws.p.copy_(rnd())
+    ws.z.copy_(rnd())
+    one = lambda: torch.zeros(1, dtype=dt, device=CARD)  # noqa: E731
+    tw = dataclasses.replace(ws, x=ws.x.clone(), r=ws.r.clone(), z=ws.z.clone(),
+                             p=ws.p.clone(), sc=ws.sc.clone(), flag=ws.flag.clone(),
+                             part_pap=one(), part_rr=one(), part_rz=one(), launch=None)
+    a = op.mmT(ws.p) if axis == 1 else op.mm(ws.p)
+    return ws, tw, a.contiguous()
+
+
+def check_sum(name, parts, ref, dname):
+    got, want = float(parts.double().sum()), float(ref.double().sum())
+    rel = abs(got - want) / max(abs(want), 1e-300)
+    check(math.isfinite(got) and rel <= REL_TOL[dname], f"{name}: sum rel err {rel:.3e}")
+    return rel
+
+
+def fused_kernels_check(tag, op, prec, axis, q, dt):
+    """Each kernel against its plain version on one random state, in the
+    iteration's order; returns the largest relative error, the largest
+    absolute error of the vectors it writes, and the pair's state."""
+    dname = str(dt).removeprefix("torch.")
+    ws, tw, a = fused_pair(op, prec, axis, q, dt)
+    errs, abs_errs = [], []
+
+    def close(name, got, ref):
+        abs_err, rel_err = check_close(name, got, ref, dname)
+        abs_errs.append(abs_err)
+        return rel_err
+
+    cg_fused.pap(ws, a)
+    cg_fused.pap_plain(tw, a)
+    errs.append(check_sum(f"{tag} pap", ws.part_pap, tw.part_pap, dname))
+    cg_fused.precond(ws)
+    cg_fused.precond_plain(tw)
+    errs.append(close(f"{tag} precond z", ws.z, tw.z))
+    errs.append(check_sum(f"{tag} precond <r, z>", ws.part_rz, tw.part_rz, dname))
+    tw = dataclasses.replace(tw, part_pap=ws.part_pap, part_rz=ws.part_rz)  # the kernels' sums
+    cg_fused.update(ws, a)
+    cg_fused.update_plain(tw, a)
+    errs += [close(f"{tag} update {v}", getattr(ws, v), getattr(tw, v)) for v in ("x", "r")]
+    errs.append(check_sum(f"{tag} update gamma", ws.sc[:1], tw.sc[:1], dname))
+    errs.append(check_sum(f"{tag} update <r, r>", ws.part_rr, tw.part_rr, dname))
+    tw = dataclasses.replace(tw, part_rr=ws.part_rr)
+    cg_fused.direction(ws)
+    cg_fused.direction_plain(tw)
+    errs.append(close(f"{tag} direction p", ws.p, tw.p))
+    check(int(ws.flag) == int(tw.flag), f"{tag} direction: flag {int(ws.flag)} vs {int(tw.flag)}")
+    torch.cuda.synchronize()
+    return max(errs), max(abs_errs), (ws, tw, a)
+
+
+def fused_timings(tag, op, prec, ws, tw, a):
+    """Each kernel's and plain version's device time (CUDA events) beside
+    the bound: the bytes each must move (the block product's operations)."""
+    V = ws.p.numel() * ws.p.element_size()
+    inv_bytes = prec.numel() * prec.element_size()
+    q = ws.p.shape[1 - ws.axis]
+    flops = 2.0 * q * prec.shape[1] ** 2 * prec.shape[0] if prec.dim() == 3 else 2.0 * q * op.n
+    rows = {}
+    for name, kern, plain, nbytes, fl in (
+            ("cg_pap", lambda: cg_fused.pap(ws, a), lambda: cg_fused.pap_plain(tw, a), 2 * V, 0),
+            ("cg_update", lambda: cg_fused.update(ws, a), lambda: cg_fused.update_plain(tw, a),
+             6 * V, 0),
+            ("cg_precond", lambda: cg_fused.precond(ws), lambda: cg_fused.precond_plain(tw),
+             2 * V + inv_bytes, flops),
+            ("cg_direction", lambda: cg_fused.direction(ws), lambda: cg_fused.direction_plain(tw),
+             3 * V, 0)):
+        t, _ = time_ms(kern)
+        t_plain, _ = time_ms(plain)
+        bound, by = bound_ms(nbytes, fl, ws.p.dtype)
+        rows[name] = {"ms": t, "plain_ms": t_plain, "bound_ms": bound, "bound_by": by}
+        log(f"{tag} {name}: {t * 1e3:.2f} us (bound {bound * 1e3:.2f} us by {by}, "
+            f"{share(bound, t)}); plain {t_plain * 1e3:.2f} us")
+    total = sum(r["ms"] for r in rows.values())
+    log(f"{tag} the four kernels: {total * 1e3:.2f} us a CG iteration, bound "
+        f"{sum(r['bound_ms'] for r in rows.values()) * 1e3:.2f} us")
+    return rows
+
+
+def solve_profile(solver, W):
+    """One solve under the profiler: its result, Krylov iterations, wall,
+    kernels by kind (the fused kernels, K1/K2, others) and copies, and the
+    launch counters' deltas."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s0, l0 = blocklinear.krylov_iterations, (cg_fused.launches, k1.launches, k2.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        x = solver.solve(W)
+        torch.cuda.synchronize()
+    iters = blocklinear.krylov_iterations - s0
+    kinds, device_us = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name
+        kind = ("copy" if name.startswith(("Memcpy", "Memset")) else
+                "fused" if "cg_" in name else
+                "spmm" if ("dia_" in name or "bell_spmm" in name) else "other")
+        kinds[kind] += 1
+        device_us[kind] += e.device_time_total
+    log("    device µs a kernel: " + ", ".join(
+        f"{k} {device_us[k] / kinds[k]:.1f}" for k in sorted(kinds)))
+    counters = {"fused": cg_fused.launches - l0[0],
+                "spmm": k1.launches - l0[1] + k2.launches - l0[2]}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    solver.solve(W)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return x, iters, wall, dict(kinds), counters
+
+
+def fused_solves(tag, op, prec, q):
+    """One CG solve of ``(−op)X = −W`` (negate, as the cores) at width ``q``
+    through the fused iteration and the present loop: launches and wall per
+    CG iteration, and the solutions held to each other."""
+    cfg = default_dia_krylov(op.dtype, False)
+    solver = blocklinear.KrylovSolver(op=op, prec=prec, cfg=cfg)
+    W = torch.randn((op.n, q), generator=torch.Generator(device=CARD).manual_seed(q),
+                    dtype=op.dtype, device=CARD)
+    solver.solve(W)  # warm: allocator, cuBLAS handles
+    out = {}
+    for name in ("fused", "present"):
+        with (contextlib.nullcontext() if name == "fused" else unfused()):
+            x, iters, wall, kinds, counters = solve_profile(solver, W)
+        per = {k: v / iters for k, v in kinds.items()}
+        out[name] = (x, iters, wall)
+        log(f"{tag} q={q} {name}: {iters} CG iterations, {wall * 1e6 / iters:.1f} us each "
+            f"(wall {wall:.4f} s); per iteration: profiler "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per.items()))
+            + "; launch counters " + ", ".join(f"{k} {v / iters:.2f}"
+                                               for k, v in sorted(counters.items())))
+        if name == "fused":
+            check(counters["fused"] >= 4 * iters, f"{tag} q={q}: the fused kernels did not run")
+            loop = per.get("fused", 0.0) + per.get("spmm", 0.0)
+            check(not kinds or loop <= 5.5, f"{tag} q={q}: {loop:.2f} kernels a CG iteration "
+                                            "in the fused loop, more than 4 and the SpMM")
+    (xf, kf, wf), (xp, kp, wp) = out["fused"], out["present"]
+    d = rel_diff(xf, xp)
+    log(f"{tag} q={q}: fused vs present: iterations {kf} / {kp}, x {d:.3e}, "
+        f"wall per CG iteration {wf * 1e6 / kf:.1f} / {wp * 1e6 / kp:.1f} us")
+    check(abs(kf - kp) <= 1 and d <= 1e-10, f"{tag} q={q}: fused {kf} vs present {kp}, x {d:.3e}")
+    return {"iters": (kf, kp), "us_per_iter": (wf * 1e6 / kf, wp * 1e6 / kp)}
+
+
+def hold_fused(tag, runs):
+    """Hold the fused run of a step to the present loop's: equal ADI and
+    Krylov iterations, K and LDLᵀ within `FUSED_STEP_TOL`."""
+    (Xf, Kf, itf, *_), wf, cf = runs["fused"]
+    (Xp, Kp, itp, *_), wp, cp = runs["present"]
+    dK, dX = rel_diff(Kf, Kp), lr_rel_diff(Xf, Xp)
+    log(f"{tag}: fused {wf:.3f} s, present {wp:.3f} s; ADI {itf} / {itp}; Krylov "
+        f"{cf['Krylov']} / {cp['Krylov']} (fused {cf['fused']}); K {dK:.3e}, LDLᵀ {dX:.3e}")
+    check(all(bool(torch.isfinite(t).all()) for t in (Xf.L, Xf.D, Kf)), f"{tag}: non-finite")
+    check(itf == itp and cf["Krylov"] == cp["Krylov"] and cf["fused"] == cf["Krylov"]
+          and cp["fused"] == 0, f"{tag}: iterations differ ({itf}/{itp}, {cf}/{cp})")
+    check(dK <= FUSED_STEP_TOL and dX <= FUSED_STEP_TOL,
+          f"{tag}: K {dK:.3e}, LDLᵀ {dX:.3e} beyond {FUSED_STEP_TOL}")
+
+
+def fused_run(tag, run):
+    """``run()`` through the present loop and the fused iteration, in the
+    order present, fused, fused, present (the walls of all four logged):
+    {name: (result, wall, {"K1", "K2", "Krylov", "fused": counts})} of the
+    second run of each."""
+    runs, walls = {}, []
+    for name in ("present", "fused", "fused", "present"):
+        f0 = blocklinear.krylov_fused_iterations
+        with (contextlib.nullcontext() if name == "fused" else unfused()):
+            out, wall, counts, _ = counted_run(f"{tag} {name}", run)
+        counts["fused"] = blocklinear.krylov_fused_iterations - f0
+        runs[name] = (out, wall, counts)
+        walls.append(f"{name} {wall:.3f} s")
+    log(f"{tag} walls: " + ", ".join(walls))
+    return runs
+
+
+def phase_fused_steps(E, A, B, C, dev):
+    """Phase 20c: phase 3's all-real-buffer Ros1 step (CG over K1) and one
+    step of phase 5's block-ELL Ros2 sweep (CG over K2)."""
+    tag = f"[fused dia ros1 n={N_FULL}]"
+    E_op, A_op, B_d, C_d, X0 = full_step_inputs(E, A, B, C, dev)
+    F_base = lin_comb(A_op, -1.0 / (2.0 * FULL_STEP_TAU), E_op)
+    real = FULL_STEP_BUFFERS["real"]
+    ops = build_dia_shift_ops(E_op, F_base, real)
+    check(ops.cfg.method == "cg", f"{tag}: the all-real buffer runs {ops.cfg.method}")
+    hold_fused(tag, fused_run(tag, lambda: ros1_step_compiled(
+        E_op, A_op, B_d, C_d, X0, FULL_STEP_TAU, real, FULL_STEP_ABSTOL, FULL_STEP_CFG, ops)))
+    del ops, E_op, A_op
+    tag = f"[fused bell ros2 n={N_FULL}]"
+    E_b = bell_pencil(E, A, bs=BS, dtype=torch.float64, device=dev)
+    prob, shifts, _ = ros2_problem(E, A, B, C, E_b, dev, 1, CAPACITY)
+
+    def step():
+        iters = []
+        sol = solve_gdre_ros2_compiled(prob, dt=-TAU, shifts=shifts, cfg=SWEEP_CFG,
+                                       capacity=CAPACITY,
+                                       observer=lambda i, X, K, it, res: iters.append(it))
+        return sol.X[-1], sol.K[-1], iters[1:]
+
+    hold_fused(tag, fused_run(tag, step))
+
+
+def phase_fused_gale(E, A, C, dev):
+    """Phase 20d: phase 15's compiled GALE (CG over K1 on each real shift)
+    with the f32 core and with the f64 core, each through the present loop
+    and the fused iteration: equal ADI iterations, Krylov iterations within
+    one, LDLᵀ within `MIXED_REL_TOL`, and each run's tracked residual
+    confirmed by the independent evaluation (`run_gale_mixed`'s ``true``,
+    at twice the residual's rank) as phase 15 confirms it."""
+    floor = HOST_FLOOR_FACTOR * N_FULL * float(torch.finfo(torch.float64).eps)
+    for sd in ("float32", None):
+        tag = f"[fused gale {sd or 'float64'} core n={N_FULL}]"
+        runs = {}
+        for name in ("present", "fused"):
+            f0 = blocklinear.krylov_fused_iterations
+            with (unfused() if name == "present" else contextlib.nullcontext()):
+                out, wall, counts, _ = counted_run(f"{tag} {name}",
+                                                   lambda: run_gale_mixed(E, A, C, dev, sd))
+            counts["fused"] = blocklinear.krylov_fused_iterations - f0
+            runs[name] = (out, counts)
+            log(f"{tag} {name}: wall {out['wall']:.3f} s, ADI iterations {out['iters']}, "
+                f"Krylov {counts['Krylov']} ({counts['fused']} fused) in {out['solves']} "
+                f"solves, tracked relative residual {out['tracked']:.9e}, independent "
+                f"{out['true']:.9e}")
+            check(np.isfinite(out["true"]) and abs(out["true"] - out["tracked"])
+                  <= RESIDUAL_AGREE_TOL * out["tracked"] + floor,
+                  f"{tag} {name}: the independent residual {out['true']:.3e} does not "
+                  f"confirm the tracked one {out['tracked']:.3e}")
+        (f, cf), (p, cp) = runs["fused"], runs["present"]
+        dX = lr_rel_diff(f["X"], p["X"])
+        d_true = abs(f["true"] - p["true"]) / p["true"]
+        d_tracked = abs(f["tracked"] - p["tracked"]) / p["tracked"]
+        log(f"{tag} fused vs present: ADI {f['iters']} / {p['iters']}, Krylov "
+            f"{cf['Krylov']} / {cp['Krylov']}; LDLᵀ {dX:.3e}; independent residual "
+            f"{d_true:.3e} apart ({abs(f['true'] - p['true']):.3e} of ‖C‖), tracked "
+            f"{d_tracked:.3e} apart")
+        check(f["iters"] == p["iters"] and abs(cf["Krylov"] - cp["Krylov"]) <= 1
+              and cf["fused"] == cf["Krylov"] > 0 and cp["fused"] == 0,
+              f"{tag}: iterations differ ({f['iters']}/{p['iters']}, {cf}/{cp})")
+        check(dX <= MIXED_REL_TOL, f"{tag}: LDLᵀ {dX:.3e} beyond {MIXED_REL_TOL}")
+        del runs, f, p
+
+
+def phase_fused(E, A, B, C, dev):
+    """Phase 20: the fused CG iteration (20a kernels vs plain, 20b solves,
+    20c steps, 20d the f32-core GALE).  Returns (the worst relative and
+    absolute kernel errors, the q = 48 f64 timings of the DIA state)."""
+    t0 = time.perf_counter()
+    cases = fused_cases(E, A, dev)
+    worst, worst_abs, timings, solves = 0.0, 0.0, {}, {}
+    for (fmt, pk, dt), (op, prec, axis) in cases.items():
+        for q in FUSED_WIDTHS:
+            dname = str(dt).removeprefix("torch.")
+            tag = f"[fused {fmt} {pk} {dname} q={q}]"
+            err, err_abs, state = fused_kernels_check(tag, op, prec, axis, q, dt)
+            worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+            log(f"{tag} each kernel = plain, worst rel {err:.3e} (limit {REL_TOL[dname]:g})")
+            if q == 48 and dt == torch.float64 and pk == "block_jacobi":
+                timings[fmt] = fused_timings(tag, op, prec, *state)
+            del state
+        if dt == torch.float64 and pk == "block_jacobi":
+            solves[fmt] = {q: fused_solves(f"[fused {fmt} solve]", op, prec, q)
+                           for q in FUSED_WIDTHS}
+    del cases
+    phase_fused_steps(E, A, B, C, dev)
+    phase_fused_gale(E, A, C, dev)
+    log(f"[fused] phase 20 took {time.perf_counter() - t0:.1f} s; {card_line()}")
+    log(json.dumps({"fused_cg": {"kernels": timings, "solves": {
+        f: {str(q): v for q, v in d.items()} for f, d in solves.items()},
+        "max_rel_err": worst, "max_abs_err": worst_abs}}))
+    return worst, worst_abs, timings["dia"]
+
+
 def checked(tag, kern, run):
     """``run()``, a full-size main path that returns its launches, under a
     `ProductLog`; then the kernels against their plain versions at every
@@ -3193,9 +3567,12 @@ def main() -> int:
     ap.add_argument("--uncached-only", action="store_true",
                     help="build the kernels and run only phase 19 (the uncached route, "
                          "complex banded cores, the full Newton on row shards)")
+    ap.add_argument("--krylov-only", action="store_true",
+                    help="build the kernels and run only phase 20 (the fused CG iteration)")
     args = ap.parse_args()
     only = args.newton_only or args.host_only or args.dense_only or args.gmres_only \
-        or args.mixed_only or args.parareal_only or args.sharded_only or args.uncached_only
+        or args.mixed_only or args.parareal_only or args.sharded_only or args.uncached_only \
+        or args.krylov_only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3229,6 +3606,8 @@ def main() -> int:
             phase_sharded(E, A, B, C, dev, k1_launches)
             phase_shards(E, A, B, C, dev, k1_launches, k2_launches)
             log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
+        elif args.krylov_only:
+            phase_fused(E, A, B, C, dev)
         elif args.uncached_only:
             k1_launches, k2_launches = {}, {}
             phase_uncached(E, A, B, C, dev, k1_launches, k2_launches)
@@ -3289,6 +3668,7 @@ def main() -> int:
             errs = phase_uncached(E, A, B, C, dev, k1_launches, k2_launches)
             k1_err = max(k1_err, errs.get("K1", 0.0))
             k2_err = max(k2_err, errs.get("K2", 0.0))
+            _, cg_err, cg_t = phase_fused(E, A, B, C, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3299,7 +3679,12 @@ def main() -> int:
         log(json.dumps({"kernels": [
             kernel_line("dia_spmm", k1_launches, k1_err, (k1_cold[key1], k1_t[key1][1]),
                         k1_lib[key1], k1_bound),
-            kernel_line("bell_spmm", k2_launches, k2_err, k2_t[key2], k2_lib[key2], k2_bound)]}))
+            kernel_line("bell_spmm", k2_launches, k2_err, k2_t[key2], k2_lib[key2], k2_bound),
+            # The four kernels of one CG iteration at q = 48, f64, DIA's state.
+            kernel_line("cg_fused", FUSED_PATHS, cg_err,
+                        tuple(sum(r[k] for r in cg_t.values()) for k in ("ms", "plain_ms")),
+                        None, (sum(r["bound_ms"] for r in cg_t.values()),
+                               "+".join(sorted({r["bound_by"] for r in cg_t.values()}))))]}))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {

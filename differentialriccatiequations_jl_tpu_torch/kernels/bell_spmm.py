@@ -103,7 +103,7 @@ def _launch(cols, data, X):
     if q == 0:
         return Y
     with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch._C._cuda_getCurrentRawStream(X.device.index)  # current_stream()'s
         err = _kernel(X.dtype)(cols.data_ptr(), data.data_ptr(), nb, K, bs,
                                X.data_ptr(), X.stride(0), X.stride(1),
                                Y.data_ptr(), Y.stride(0), Y.stride(1),

@@ -138,7 +138,7 @@ def _launch(data, offsets, X, axis, Z=None, alpha=1.0, beta=0.0):
         return Y
     offs = (ctypes.c_int * ndiag)(*offsets)
     with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch._C._cuda_getCurrentRawStream(X.device.index)  # current_stream()'s
         err = _kernel(X.dtype)(
             data.data_ptr(), offs, ndiag,
             X.data_ptr(), X.stride(axis), X.stride(1 - axis),

@@ -31,6 +31,12 @@ Each iteration's convergence test reads one boolean back to the host
 step's breakdown test); `krylov_iterations` counts them and
 `krylov_solves` the solves.
 
+Real CG on the card under a Jacobi or block-Jacobi preconditioner, with no
+mesh active, runs the fused iteration (`_cg_fused`: the product, then the
+four kernels of `kernels.cg_fused`, its scalars on the device and the same
+one host read an iteration); `krylov_fused_iterations` counts its
+iterations.  Every other solve runs the loops below.
+
 Over a row-sharded operator (`parallel.sharded_ops.ShardedDiaOp` or
 `ShardedBellOp`, under its mesh: `parallel.mesh.use_mesh`) each rank holds
 its rows of every block, and every inner product, the right-hand side's
@@ -42,12 +48,16 @@ BiCGStab, GMRES and the refined core alike.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import cg_fused
+from ..kernels.cg_fused import block_apply as _block_apply
+from ..kernels.cg_fused import block_apply_t as _block_apply_t
 from ..parallel.mesh import active_mesh, row_allreduce, row_norm
 from ..utils.timers import timeit
 from .operators import DenseOp, LowRankUpdateOp, as_operator
@@ -56,6 +66,8 @@ from .operators import DenseOp, LowRankUpdateOp, as_operator
 krylov_iterations = 0
 #: Krylov solves run in this process.
 krylov_solves = 0
+#: Of `krylov_iterations`, those run by the fused CG iteration (`_cg_fused`).
+krylov_fused_iterations = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,27 +154,6 @@ class SMWSolver:
             return AinvB - self.AinvU @ t
 
 
-def _block_apply(inv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``(nb, bs, bs)`` block inverses to column-major ``(n, q)``."""
-    nb, bs, _ = inv.shape
-    squeeze = x.dim() == 1
-    if squeeze:
-        x = x[:, None]
-    n, q = x.shape
-    xp = F.pad(x, (0, 0, 0, nb * bs - n)).reshape(nb, bs, q)
-    y = torch.bmm(inv, xp).reshape(nb * bs, q)[:n]
-    return y[:, 0] if squeeze else y
-
-
-def _block_apply_t(inv: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
-    """Apply ``(nb, bs, bs)`` block inverses in lane-major ``(q, N)``."""
-    q, N = xt.shape
-    nb, bs, _ = inv.shape
-    xb = F.pad(xt, (0, nb * bs - N)).reshape(q, nb, bs)
-    y = torch.einsum("nab,qnb->qna", inv, xb)
-    return y.reshape(q, nb * bs)[:, :N]
-
-
 @dataclasses.dataclass(frozen=True)
 class PairBlockPrec:
     """Block-Jacobi preconditioner of a *complex* shifted operator in
@@ -229,6 +220,32 @@ def _cg(A, b, *, maxiter, tol, atol, M):
         gamma = gamma_
         k += 1
     return x
+
+
+def _cg_fused(A, b, *, s, prec, axis, maxiter, tol, atol):
+    """`_cg` on ``(sA)x = b`` with ``M = s·prec``, whose iteration after the
+    product ``a = A(p)`` runs as the four kernels of `kernels.cg_fused` on
+    one workspace (their plain versions on the CPU): the same formulas,
+    stopping test and host read an iteration.  ``b``: the state, ``(n,)``
+    or 2-D with problem axis ``axis``."""
+    global krylov_fused_iterations
+    squeeze = b.dim() == 1
+    if squeeze:
+        b = b[:, None]
+    b = b.contiguous()
+    atol2 = torch.clamp(tol * tol * _vdot_real(b, b), min=atol * atol)
+    x = torch.zeros_like(b)
+    with torch.cuda.device(b.device) if b.is_cuda else contextlib.nullcontext():
+        ws = cg_fused.workspace(x, b - s * A(x), prec, s, axis, atol2)
+        cg_fused.precond(ws)
+        ws.p.copy_(ws.z)
+        ws.flag.copy_((_vdot_real(ws.r, ws.r) > atol2).reshape(1))
+        k = 0
+        while k < maxiter and _continue(ws.flag):
+            krylov_fused_iterations += 1
+            cg_fused.iteration(ws, A(ws.p))
+            k += 1
+    return ws.x[:, 0] if squeeze else ws.x
 
 
 def _bicgstab(A, b, *, maxiter, tol, atol, M):
@@ -350,18 +367,24 @@ class KrylovSolver:
     def _apply_prec(self, x: torch.Tensor) -> torch.Tensor:
         if isinstance(self.prec, PairBlockPrec):
             return self.prec.apply(x)
-        if self.prec.dim() == 3:
-            return _block_apply(self.prec, x)
-        pinv = self.prec[:x.shape[0]]
-        return pinv[:, None] * x if x.dim() == 2 else pinv * x
+        if x.dim() == 1 and self.prec.dim() == 1:
+            return self.prec[:x.shape[0]] * x
+        return cg_fused.precond_apply(self.prec, x, axis=0)
 
     def _apply_prec_t(self, xt: torch.Tensor) -> torch.Tensor:
         """Preconditioner in lane-major ``(q, N)`` layout."""
         if isinstance(self.prec, PairBlockPrec):
             return self.prec.apply_t(xt)
-        if self.prec.dim() == 3:
-            return _block_apply_t(self.prec, xt)
-        return self.prec[None, :] * xt
+        return cg_fused.precond_apply(self.prec, xt, axis=1)
+
+    def _fused(self, B: torch.Tensor) -> bool:
+        """Whether the solve of ``B`` takes `_cg_fused`: real f32 or f64 CG
+        on the card under Jacobi or block-Jacobi, no mesh active.  Inside
+        that route a preconditioner the kernels cannot take raises
+        (`cg_fused.workspace`)."""
+        return (self.cfg.method == "cg" and B.is_cuda
+                and B.dtype in (torch.float32, torch.float64)
+                and isinstance(self.prec, torch.Tensor) and active_mesh() is None)
 
     def solve(self, B: torch.Tensor) -> torch.Tensor:
         global krylov_solves
@@ -380,6 +403,11 @@ class KrylovSolver:
             base_mv, base_prec = self.op.mmT, self._apply_prec_t
         else:
             base_mv, base_prec = self.op.mm, self._apply_prec
+        if self._fused(B):
+            s = -1.0 if cfg.negate else 1.0
+            x = _cg_fused(base_mv, s * B, s=s, prec=self.prec, axis=1 if lane_major else 0,
+                          maxiter=cfg.maxiter, tol=cfg.tol, atol=cfg.atol)
+            return (x[:, :n_rows].T if lane_major else x) * scale
         if cfg.negate:
             def mv(x):
                 return -base_mv(x)

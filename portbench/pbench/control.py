@@ -5,7 +5,8 @@ limit lies below the least reading of both, where both exist.
 * ``program_f32``: the program's own float32 path (the whole problem in
   float32), judged against the float64 reference;
 * ``reference_f32``: the reference itself run in float32 in the program's
-  place (the sweeps; the Newton cell's reference is a residual, not a
+  place, where the request kind's module gives one (the sweeps, through
+  `sweep_reference_f32`; the Newton cell's reference is a residual, not a
   solver), judged against the float64 reference: what a float32 solve to
   float32 accuracy gives.
 """
@@ -37,11 +38,21 @@ def program_f32(config, traffic, inputs, device):
 
 
 def reference_f32(config, traffic, inputs, device):
-    req = requests.make(config, traffic, inputs, torch.float64, device)
-    if not isinstance(req, requests.Sweep):
+    """The reference in float32 in the program's place, judged by the
+    float64 reference; ``None`` for a kind with no such control (its
+    module has no ``reference_f32``)."""
+    kind = requests.kind(traffic)
+    if not hasattr(kind, "reference_f32"):
         return None
-    E, A, B, C = (inputs[k] for k in "EABC")
-    req.L0, req.D0 = requests.initial_state(inputs, traffic)
+    req = kind.make(config, traffic, inputs, torch.float64, device)
+    return kind.reference_f32(req, device)
+
+
+def sweep_reference_f32(req, device):
+    """The sweeps' reference in float32: the reference sweep from the same
+    ``X0``, its ``K`` and ``X`` judged by ``req.check``."""
+    E, A, B, C = (req.inputs[k] for k in "EABC")
+    req.L0, req.D0 = requests.initial_state(req.inputs, req.traffic)
     dt = torch.float32
     P = reference.Pencil(E, A, B, C, dtype=dt, device=device)
     sweep = reference.ros1_sweep if req.method == "ros1" else reference.ros2_sweep

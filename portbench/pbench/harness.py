@@ -1,20 +1,29 @@
 """One run of one cell: set-up, the measured window, the metrics, the check
 against the plain reference, and the result line.
 
-Everything about a cell is found by name: the workload and its
-configuration in ``BENCHMARK.json``, the configuration's sizes in its
-``file``, the traffic mix in ``portbench/traffic/<traffic>.json``, the
-limits of the comparison in ``portbench/limits/<cell>.json`` and each
-metric's reader in ``portbench/metrics/<metric>.py`` (a ``read(run)`` that
-returns a number or ``None``, and optionally an ``instrument(run)`` context
-manager entered around the traced request).  A metric ``<name>.<suffix>``
-without a file of its own is read by ``<name>.py``.
+Everything about a cell is found by name, so a new cell is new files:
+
+* the workload and its configuration in ``BENCHMARK.json``, the
+  configuration's sizes in its ``file``;
+* the traffic mix in ``portbench/traffic/<traffic>.json``;
+* the limits of the comparison in ``portbench/limits/<cell>.json``;
+* the request kind that the traffic file's ``"request"`` names in
+  ``portbench/kinds/<request>.py``, the storage format and the problem
+  generator that the configuration's ``"format"`` and ``"generator"`` name
+  in ``portbench/formats/<format>.py`` and
+  ``portbench/generators/<generator>.py`` (see `requests`);
+* each metric's reader in ``portbench/metrics/<metric>.py`` (a
+  ``read(run)`` that returns a number or ``None``, and optionally an
+  ``instrument(run)`` context manager entered around the traced request).
+  A metric ``<name>.<suffix>`` without a file of its own is read by
+  ``<name>.py``.
+
+All four code files are loaded by `byname.load`.
 """
 
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 import json
 import math
 import statistics
@@ -25,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-from . import counters, requests, trace
+from . import byname, counters, requests, trace
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "portbench"
@@ -85,14 +94,9 @@ def metric_names(name: str, trace_on: bool) -> list:
 def load_reader(metric: str):
     """The reader of ``metric``: ``metrics/<metric>.py``, or failing that the
     reader of the name with its last ``.<suffix>`` taken off."""
-    path = BENCH / "metrics" / f"{metric}.py"
-    if not path.exists() and "." in metric:
+    if not (BENCH / "metrics" / f"{metric}.py").exists() and "." in metric:
         return load_reader(metric.rsplit(".", 1)[0])
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric.replace('.', '_')}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return byname.load("metrics", metric)
 
 
 def card_power_limit() -> str | None:

@@ -1,6 +1,21 @@
-"""The general generator: one kind of request per traffic file's
-``"request"`` (``ros1_sweep``, ``ros2_sweep``, ``gare_newton``), with every
-size and setting read from the traffic file and the configuration file.
+"""The general generator: the inputs, the program's pencil and the
+request, each from the file that a name in the cell's files picks
+(`byname.load`), with every size and setting read from the traffic file and
+the configuration file:
+
+* ``generators/<generator>.py``, for the configuration's ``"generator"``:
+  ``build(config, seed) -> dict``, the matrices from the seed
+  (``rail_surrogate``);
+* ``formats/<format>.py``, for the configuration's ``"format"``:
+  ``operators(config, inputs, dtype, device) -> (E_op, A_op)``, the
+  program's pencil in that storage (``dia``, ``bell``);
+* ``kinds/<request>.py``, for the traffic file's ``"request"``:
+  ``make(config, traffic, inputs, dtype, device)``, the request
+  (``ros1_sweep``, ``ros2_sweep``, ``gare_newton``); optionally
+  ``tiny(config, traffic) -> (config, traffic)``, its cut for the CPU
+  rehearsal, ``FAULTS``, the faults planted in its timed path that its
+  check has to catch (`faults`), and ``reference_f32(request, device)``,
+  the reference run in float32 in the program's place (`control`).
 
 A request is a whole sweep or a whole Newton solve through the program's
 public compiled entries (`solve_gdre_ros1_compiled`,
@@ -24,34 +39,24 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from . import reference, surrogate
+from . import byname, reference
 
 GAMMA = reference.GAMMA
 
 
+def kind(traffic: dict):
+    """The module of the traffic file's request kind."""
+    return byname.load("kinds", traffic["request"])
+
+
 def build_inputs(config: dict, seed: int) -> dict:
-    """The configuration's matrices from the seed (SciPy CSR ``E``, ``A``;
-    numpy ``B (n, m)``, ``C (q, n)``)."""
-    if config["generator"] != "rail_surrogate":
-        raise ValueError(f"unknown generator {config['generator']!r}")
-    E, A, B, C = surrogate.rail_surrogate(config["n"], m=config["m"], q=config["q"], seed=seed)
-    return {"E": E, "A": A, "B": B, "C": C}
+    """The configuration's matrices from the seed, by its generator."""
+    return byname.load("generators", config["generator"]).build(config, seed)
 
 
 def program_operators(config: dict, inputs: dict, dtype, device):
     """The program's pencil in the configuration's storage format."""
-    if config["format"] == "dia":
-        from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
-
-        E_op, A_op = dia_pencil(inputs["E"], inputs["A"], dtype=dtype, device=device)
-    elif config["format"] == "bell":
-        from differentialriccatiequations_jl_tpu_torch.ops.sparse import bell_pencil
-
-        E_op, A_op = bell_pencil(inputs["E"], inputs["A"], bs=config["bs"], dtype=dtype,
-                                 device=device)
-    else:
-        raise ValueError(f"unknown format {config['format']!r}")
-    return E_op, A_op
+    return byname.load("formats", config["format"]).operators(config, inputs, dtype, device)
 
 
 def _sync(device):
@@ -184,6 +189,13 @@ class Sweep:
         return {"k_gap": k_gap, "x_gap": x_gap}, notes
 
 
+def two_steps(config: dict, traffic: dict):
+    """A sweep cut for the CPU rehearsal: its first two steps, at a capacity
+    that holds every column at the rehearsal's size."""
+    t0 = traffic["tspan"][0]
+    return config, dict(traffic, tspan=[t0, t0 + 2 * traffic["dt"]], capacity=160)
+
+
 class Newton:
     """``gare_newton``: the compiled Kleinman–Newton GARE solve from
     ``X = 0`` with ``G = lowrank(gain·B)``, ``Q = lowrank(Cᵀ)`` and
@@ -244,11 +256,5 @@ class Newton:
 
 
 def make(config: dict, traffic: dict, inputs: dict, dtype, device):
-    kind = traffic["request"]
-    if kind == "ros1_sweep":
-        return Sweep("ros1", config, traffic, inputs, dtype, device)
-    if kind == "ros2_sweep":
-        return Sweep("ros2", config, traffic, inputs, dtype, device)
-    if kind == "gare_newton":
-        return Newton(config, traffic, inputs, dtype, device)
-    raise ValueError(f"unknown request kind {kind!r}")
+    """The request of the traffic file's kind, not yet prepared."""
+    return kind(traffic).make(config, traffic, inputs, dtype, device)

@@ -1,5 +1,6 @@
 """Shared set-up of the benchmark's CPU tests: the harness on the path and
-each cell cut to a size the CPU holds (n = 371, two steps)."""
+every cell of ``BENCHMARK.json`` cut to a size the CPU holds (n = 371,
+then its request kind's own cut)."""
 
 import sys
 import time
@@ -11,23 +12,27 @@ for p in (str(BENCH), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-from pbench import harness  # noqa: E402
+from pbench import harness, requests  # noqa: E402
 
-CELLS = ("rail79841-dia.ros1-sweep", "rail79841-bell.ros2-sweep", "rail79841-dia.newton")
+CELLS = tuple(w["name"] for w in harness.manifest()["workloads"])
 TINY_N = 371
 SEED = 2**31 + 12345
 
 
+def kind(cell: str):
+    """The module of ``cell``'s request kind."""
+    return requests.kind(harness.cell_files(cell)[2])
+
+
 def tiny(cell: str):
-    """(config, traffic, limits) of ``cell`` at n = 371; sweeps cut to two
-    steps at a capacity that holds every column."""
+    """(config, traffic, limits) of ``cell`` at n = 371, then cut by its
+    kind's ``tiny`` where it has one (the sweeps: two steps at a capacity
+    that holds every column)."""
     _, config, traffic, limits = harness.cell_files(cell)
     config = dict(config, n=TINY_N)
-    traffic = dict(traffic)
-    if traffic["request"] != "gare_newton":
-        t0 = traffic["tspan"][0]
-        traffic["tspan"] = [t0, t0 + 2 * traffic["dt"]]
-        traffic["capacity"] = 160
+    cut = getattr(requests.kind(traffic), "tiny", None)
+    if cut is not None:
+        config, traffic = cut(config, traffic)
     return config, traffic, limits
 
 

@@ -12,8 +12,10 @@ import torch
 import portbench_tiny as tiny
 from pbench import control, requests
 
-SWEEPS = tiny.CELLS[:2]
-NEWTON = tiny.CELLS[2]
+# The cells whose kind runs the reference in float32 as a control, and
+# every cell with each fault its kind plants.
+REFERENCE_CONTROLLED = [c for c in tiny.CELLS if hasattr(tiny.kind(c), "reference_f32")]
+FAULTS = [(c, f) for c in tiny.CELLS for f in getattr(tiny.kind(c), "FAULTS", {})]
 
 
 @pytest.mark.parametrize("cell", tiny.CELLS)
@@ -61,7 +63,7 @@ def test_program_f32_control_fails(cell):
     assert numbers is not None or "error" in record
 
 
-@pytest.mark.parametrize("cell", SWEEPS)
+@pytest.mark.parametrize("cell", REFERENCE_CONTROLLED)
 def test_reference_f32_control_fails(cell):
     """The reference run in float32 in the program's place, the other
     control, is far from the float64 reference, where the float64 program
@@ -80,44 +82,7 @@ def test_reference_f32_control_fails(cell):
 # --- faults planted in the timed path: each must make `correct` false ----------
 
 
-def _unchanged_step(E, A, B, C, X, tau, shifts, abstol, cfg, shift_lus=None):
-    from differentialriccatiequations_jl_tpu_torch.models.rosenbrock_lowrank import feedback_K
-
-    return X, feedback_K(E, B, X), 1, torch.zeros(())
-
-
-def _altered(fn):
-    def wrapper(*args, **kw):
-        X, K, iters, res = fn(*args, **kw)
-        return X, K * 1.1, iters, res
-    return wrapper
-
-
-@pytest.mark.parametrize("cell", SWEEPS)
-@pytest.mark.parametrize("fault", ["unchanged_state", "altered_answer"])
-def test_sweep_fault_is_caught(cell, fault, monkeypatch):
-    from differentialriccatiequations_jl_tpu_torch.models import compiled
-
-    name = "ros1_step_compiled" if "ros1" in cell else "ros2_step_compiled"
-    bad = _unchanged_step if fault == "unchanged_state" else _altered(getattr(compiled, name))
-    monkeypatch.setattr(compiled, name, bad)
+@pytest.mark.parametrize("cell,fault", FAULTS, ids=[f"{f}-{c}" for c, f in FAULTS])
+def test_fault_is_caught(cell, fault, monkeypatch):
+    tiny.kind(cell).FAULTS[fault](monkeypatch)
     assert tiny.run_tiny(cell)["correct"] is False
-
-
-@pytest.mark.parametrize("fault", ["unchanged_state", "altered_answer"])
-def test_newton_fault_is_caught(fault, monkeypatch):
-    from differentialriccatiequations_jl_tpu_torch.lowrank import LowRank
-    from differentialriccatiequations_jl_tpu_torch.models import compiled
-
-    if fault == "unchanged_state":
-        def bad(E, A, B, X, K, res, shifts, inner_abstol, cfg, shift_lus):
-            return X, 1, torch.zeros(())
-        monkeypatch.setattr(compiled, "_newton_step_compiled", bad)
-    else:
-        solve = compiled.solve_gare_newton_compiled
-
-        def bad(*args, **kw):
-            X, info = solve(*args, **kw)
-            return LowRank(L=X.L, D=X.D * (1.0 + 1e-6), k=X.k), info
-        monkeypatch.setattr(compiled, "solve_gare_newton_compiled", bad)
-    assert tiny.run_tiny(NEWTON)["correct"] is False

@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, and the harness finding
-each cell's configuration, traffic mix, limits and metric readers by name."""
+each cell's configuration, traffic mix, limits, request kind, storage
+format, problem generator and metric readers by name."""
 
 import json
 import re
@@ -7,7 +8,7 @@ import re
 import pytest
 
 import portbench_tiny as tiny
-from pbench import harness
+from pbench import byname, harness, requests
 
 MAN = json.loads((tiny.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -50,8 +51,37 @@ def test_harness_finds_cell_files(cell):
     work, config, traffic, limits = harness.cell_files(cell)
     assert work["chips"] == 1
     assert config["name"] == work["config"]
-    assert traffic["request"] in ("ros1_sweep", "ros2_sweep", "gare_newton")
     assert limits and all("limit" in v for v in limits.values())
+
+
+# Each name a cell's files give picks a module, and what the harness calls
+# in it.
+PARTS = {"request": ("kinds", "make"), "format": ("formats", "operators"),
+         "generator": ("generators", "build")}
+
+
+@pytest.mark.parametrize("part", PARTS)
+@pytest.mark.parametrize("cell", tiny.CELLS)
+def test_cell_names_resolve_to_modules(cell, part):
+    _, config, traffic, _ = harness.cell_files(cell)
+    folder, entry = PARTS[part]
+    name = (traffic if part == "request" else config)[part]
+    mod = byname.load(folder, name)
+    assert mod.__file__ == str(tiny.BENCH / folder / f"{name}.py")
+    assert callable(getattr(mod, entry))
+
+
+@pytest.mark.parametrize("part", PARTS)
+def test_an_unknown_name_raises_naming_the_file(part):
+    folder, _ = PARTS[part]
+    config = {"generator": "no_such", "format": "no_such"}
+    call = {"request": lambda: requests.make(config, {"request": "no_such"}, {}, None, "cpu"),
+            "format": lambda: requests.program_operators(config, {}, None, "cpu"),
+            "generator": lambda: requests.build_inputs(config, 1)}[part]
+    with pytest.raises(ValueError, match=f"{folder}/no_such.py"):
+        call()
+    with pytest.raises(ValueError, match="no file"):
+        byname.load(folder, "../pbench/harness")
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])
@@ -94,4 +124,18 @@ def test_configs_sources_and_files():
     for c in MAN["configs"]:
         conf = json.loads((tiny.ROOT / c["file"]).read_text())
         assert c["file"].startswith("portbench/")
-        assert conf["n"] == 79841 and c["reduced"] == []
+        assert conf["name"] == c["name"]
+
+
+@pytest.mark.parametrize("entry", MAN["configs"], ids=lambda c: c["name"])
+def test_reduced_keys_are_keys_of_the_file(entry):
+    conf = json.loads((tiny.ROOT / entry["file"]).read_text())
+    assert len(entry["reduced"]) <= 16
+    assert set(entry["reduced"]) <= set(conf), entry["reduced"]
+
+
+@pytest.mark.parametrize("name", ["rail79841-dia", "rail79841-bell"])
+def test_rail79841_configs_are_uncut(name):
+    entry = {c["name"]: c for c in MAN["configs"]}[name]
+    conf = json.loads((tiny.ROOT / entry["file"]).read_text())
+    assert conf["n"] == 79841 and entry["reduced"] == []

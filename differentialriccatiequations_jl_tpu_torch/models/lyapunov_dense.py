@@ -18,7 +18,10 @@ becomes this iteration, as in the JAX package.
 sequence, so each further right-hand side (a Rosenbrock stage) replays only
 the C-updates.  The iteration runs a fixed ``maxiters`` with no early exit
 (after convergence ``M ≈ −I`` and the tail is a run of fixed points), and
-reads nothing back to the host.
+reads nothing back to the host.  A cache build and a stage solve are each a
+`timeit` span (``lyapunov_dense.sign_cache``, ``lyapunov_dense.solve``), and
+the host counts the M-steps and C-updates run (`sign_iterations`,
+`replay_iterations`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,13 @@ import dataclasses
 import numpy as np
 import scipy.linalg
 import torch
+
+from ..utils.timers import timeit
+
+#: Sign-iteration M-steps run in this process (one LU and one inversion each).
+sign_iterations = 0
+#: C-updates replayed in this process (two GEMMs each), over all stage solves.
+replay_iterations = 0
 
 
 def _dense(X) -> torch.Tensor:
@@ -81,22 +91,28 @@ class SignFunctionCache:
 
     def solve(self, C) -> torch.Tensor:
         """Solve ``AᵀXE + EᵀXA = −C`` for symmetric dense ``C``."""
-        C = _dense(C)
-        # C̃ = E⁻ᵀ C E⁻¹ by two sweeps of solves with Eᵀ.
-        EinvT_C = torch.linalg.lu_solve(self.E_lu, self.E_piv, C, adjoint=True)
-        Ctil = torch.linalg.lu_solve(self.E_lu, self.E_piv, EinvT_C.T, adjoint=True).T
-        X = _replay_rhs(Ctil, self.Minvs, self.cs)
-        return 0.5 * (X + X.T)
+        global replay_iterations
+        with timeit("lyapunov_dense.solve"):
+            C = _dense(C)
+            # C̃ = E⁻ᵀ C E⁻¹ by two sweeps of solves with Eᵀ.
+            EinvT_C = torch.linalg.lu_solve(self.E_lu, self.E_piv, C, adjoint=True)
+            Ctil = torch.linalg.lu_solve(self.E_lu, self.E_piv, EinvT_C.T, adjoint=True).T
+            X = _replay_rhs(Ctil, self.Minvs, self.cs)
+            replay_iterations += self.Minvs.shape[0]
+            return 0.5 * (X + X.T)
 
 
 def sign_function_cache(E, A, maxiters: int = 40) -> SignFunctionCache:
     """Factor ``E`` and run the sign iteration on ``M = A E⁻¹``."""
-    E, A = _dense(E), _dense(A)
-    E_lu, E_piv = torch.linalg.lu_factor(E)
-    # M = A E⁻¹  ⇔  Mᵀ = E⁻ᵀ Aᵀ
-    M = torch.linalg.lu_solve(E_lu, E_piv, A.T, adjoint=True).T
-    _, Minvs, cs = _sign_iteration(M, maxiters)
-    return SignFunctionCache(E_lu=E_lu, E_piv=E_piv, Minvs=Minvs, cs=cs)
+    global sign_iterations
+    with timeit("lyapunov_dense.sign_cache"):
+        E, A = _dense(E), _dense(A)
+        E_lu, E_piv = torch.linalg.lu_factor(E)
+        # M = A E⁻¹  ⇔  Mᵀ = E⁻ᵀ Aᵀ
+        M = torch.linalg.lu_solve(E_lu, E_piv, A.T, adjoint=True).T
+        _, Minvs, cs = _sign_iteration(M, maxiters)
+        sign_iterations += maxiters
+        return SignFunctionCache(E_lu=E_lu, E_piv=E_piv, Minvs=Minvs, cs=cs)
 
 
 def solve_gale_dense(E, A, C, maxiters: int = 40) -> torch.Tensor:

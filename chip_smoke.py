@@ -22,7 +22,8 @@ both compilers started together, and then:
    the n=79841 Rail surrogate (bs=128, f64, 16 Penzl shifts), counting K2
    launches;
 6. checks the compiled Kleinman–Newton GARE solver at n=1357 on the card
-   against the CPU (the north-star configuration cut to 20 Newton steps);
+   against the CPU (the north-star configuration cut to 20 Newton steps),
+   both with their closed-loop rebuilds on the card route;
 7. drives the Newton path at full size: `solve_gare_newton_compiled` on the
    n=79841 Rail surrogate's DIA pencil (the reference bench's north-star
    GARE configuration, f64, reltol 1e-10) to its end, counting K1 launches,
@@ -104,7 +105,8 @@ both compilers started together, and then:
     launches counted by route; 19b the uncached Ros1 step on the block-ELL
     pencil (real buffer) against its cached step, through K2; 19c the
     north-star Newton at capacity 192 on DIA row shards over a world-size-1
-    NCCL group against the same solve without a group (equal steps,
+    NCCL group against the same solve without a group, both rebuilding
+    their shifts on the host (equal steps,
     θ-stages, rebuilds and shift sets, K within 1e-10, each last residual
     confirmed independently), walls, collectives per step and peaks
     printed; 19d that Newton at n=256 over 2 gloo ranks on the host's CPU
@@ -122,7 +124,17 @@ both compilers started together, and then:
     and with the f64 core through both: equal ADI iterations, Krylov
     iterations within one, LDLᵀ within 1e-9, each residual confirmed
     independently.  The kernels line's ``cg_fused`` entry gives the fused
-    kernels' launches on each main path (phases 3, 5, 7, 10, 11 and 15).
+    kernels' launches on each main path (phases 3, 5, 7, 10, 11 and 15);
+21. runs the Newton's closed-loop Penzl rebuild on the card
+    (`heuristic_shifts_card`) at n=79841: the block-tridiagonal Cholesky
+    factors of ``E`` and ``−A`` against SuperLU (1e-12 relative), their
+    bytes and build walls, one application's device time by CUDA events
+    behind a sleep that covers the enqueue of every timed call (beside
+    `time_ms`'s reading and the enqueue time, and for ``B``'s columns),
+    then a cold 30 + 30-step rebuild and a
+    warm-started 15 + 15-step one on a moved feedback through both routes:
+    walls (the card's twice on the same input), the peak memory of the card
+    rebuild, and equal Penzl shift sets (`SHIFT_SET_TOL` after sorting).
 
 Phases 10, 11, 14 and 15 hold each solver's residual against an
 independent evaluation (`residual`).  Every full-size path (phases 3, 5, 7,
@@ -136,7 +148,8 @@ builds the kernels and runs phase 7 alone (at another capacity of ``X``);
 ``--host-only`` builds them and runs phases 8 to 11, ``--dense-only``
 phases 12 and 13, ``--gmres-only`` phase 14 and ``--mixed-only`` phase 15
 (both flags: both phases), ``--parareal-only`` phase 16, ``--sharded-only``
-phases 17 and 18, ``--uncached-only`` phase 19, ``--krylov-only`` phase 20.
+phases 17 and 18, ``--uncached-only`` phase 19, ``--krylov-only`` phase 20,
+``--shifts-only`` phase 21.
 
 Exits non-zero, without the final ``"ok"`` line, if there is no CUDA
 device or any phase fails.  Imports nothing of JAX.
@@ -195,6 +208,7 @@ from differentialriccatiequations_jl_tpu_torch.models.shifts import heuristic_sh
 from differentialriccatiequations_jl_tpu_torch.ops import blocklinear
 from differentialriccatiequations_jl_tpu_torch.ops.shifted import shifted_operator
 from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil, shifted_dia
+from differentialriccatiequations_jl_tpu_torch.ops.dia_cholesky import dia_cholesky
 from differentialriccatiequations_jl_tpu_torch.ops.operators import (
     DenseOp, lin_comb, op_astype, scale_op)
 from differentialriccatiequations_jl_tpu_torch.ops.sparse import (
@@ -1033,17 +1047,32 @@ def lr_rel_diff(Xa: LowRank, Xb: LowRank) -> float:
     return float(torch.linalg.norm(d.D) / lr_norm(Xb))
 
 
+@contextlib.contextmanager
+def shift_route(on_card: bool):
+    """The Newton's closed-loop rebuilds pinned to one route
+    (`compiled._shifts_on_card`) whatever the operators' device."""
+    chosen = compiled._shifts_on_card
+    compiled._shifts_on_card = lambda E, A: on_card
+    try:
+        yield
+    finally:
+        compiled._shifts_on_card = chosen
+
+
 def phase_newton_small():
     """The Newton solve at n=1357 on the card (kernel path) and on the CPU
-    (plain path), 20 Newton steps: equal steps, θs, rebuilds and ADI
-    iterations; residuals, X and K within `NEWTON_REL_TOL`."""
+    (plain path), 20 Newton steps, both with their rebuilds on the card
+    route (`heuristic_shifts_card`, on CPU tensors in the CPU run): equal
+    steps, θs, rebuilds and ADI iterations; residuals, X and K within
+    `NEWTON_REL_TOL`."""
     E, A, B, C = rail_surrogate(N_SMALL)
     outs = {}
     for dev in (CARD, "cpu"):
         prob = newton_problem(E, A, B, C, dev)
         before = k1.launches
         t0 = time.perf_counter()
-        X, info, warned = run_newton(prob, CAPACITY, SMALL_NEWTON_MAXITERS)
+        with shift_route(True):
+            X, info, warned = run_newton(prob, CAPACITY, SMALL_NEWTON_MAXITERS)
         if dev == CARD:
             torch.cuda.synchronize()
             check(k1.launches > before, f"n={N_SMALL} Newton: K1 was not launched")
@@ -3112,7 +3141,8 @@ def phase_newton_shards(E, A, B, C, dev):
     def run(m):
         c0 = collections.Counter(mesh_mod.collectives)
         t = time.perf_counter()
-        with warnings.catch_warnings():
+        # Row shards rebuild on the host; so does their twin here.
+        with warnings.catch_warnings(), shift_route(False):
             warnings.simplefilter("ignore")  # the outcome is logged below
             out, peak = with_peak(lambda: dryrun.newton_solve(prob.E, prob.A, prob.G, prob.Q,
                                                               m, **kw))
@@ -3525,6 +3555,119 @@ def phase_fused(E, A, B, C, dev):
     return worst, worst_abs, timings["dia"]
 
 
+# Phase 21: the closed-loop Penzl rebuild on the card.  The factors' solves
+# against SuperLU: both are direct solves of matrices with condition
+# numbers under 200, so they agree to rounding.
+CHOLESKY_REL_TOL = 1e-12
+# Feedbacks of the rebuild: ``K = c·Bᵀ`` keeps ``A − BK`` symmetric and
+# stable.  The first is the open loop, as at the Newton's first rebuild; the
+# second, warm-started, moves the pencil.  A warm start is a converged Ritz
+# vector, so a warm rebuild on a pencil that barely moved draws its other
+# Ritz values from rounding: the host route's own set then moves by up to
+# 1e-3 when its start moves by 1e-15 (the Rail surrogate at n=1357, K from
+# 10·Bᵀ to 10.5·Bᵀ).  The phase prints that spread of the host route beside
+# the routes' gap.
+REBUILD_GAINS = (0.0, 10.0)
+
+
+def device_ms_covered(fn, host_ms: float) -> float:
+    """Median device time of one call over `TIMED_CALLS` calls (CUDA
+    events) behind a sleep kernel long enough to cover the enqueue of all
+    of them at ``host_ms`` a call: `time_ms`'s fixed sleep covers about
+    50 ms, and calls enqueued after it has run read the host's pace."""
+    probe = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    probe[0].record()
+    torch.cuda._sleep(10_000_000)
+    probe[1].record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10_000_000 / probe[0].elapsed_time(probe[1])
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_CALLS)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_CALLS)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2.0 * TIMED_CALLS * host_ms * cycles_per_ms))
+    for st, e in zip(starts, ends):
+        st.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(st.elapsed_time(e) for st, e in zip(starts, ends))
+
+
+def phase_shifts_card(E, A, B, dev):
+    """Phase 21: the closed-loop Penzl rebuild through
+    `heuristic_shifts_card` against `heuristic_shifts_host`."""
+    tag = f"[shifts card n={N_FULL}]"
+    t_phase = time.perf_counter()
+    E_op, A_op = dia_pencil(E, A, dtype=torch.float64, device=dev)
+    x = np.random.default_rng(21).standard_normal(N_FULL)
+    x_d = torch.as_tensor(x, device=dev)
+    for name, op, M, neg in (("E", E_op, E, False), ("-A", A_op, A, True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fact = dia_cholesky(op, negate=neg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ref = spla.splu(sp.csc_matrix(M)).solve(x)
+        y = fact.solve(x_d).cpu().numpy()
+        err = float(np.linalg.norm(y - ref) / np.linalg.norm(ref))
+        app_ms, app_host = time_ms(lambda: fact.solve(x_d))
+        dev_ms = device_ms_covered(lambda: fact.solve(x_d), app_host)
+        X7 = torch.as_tensor(np.random.default_rng(7).standard_normal((N_FULL, B.shape[1])),
+                             device=dev)
+        _, host7 = time_ms(lambda: fact.solve(X7))
+        dev7 = device_ms_covered(lambda: fact.solve(X7), host7)
+        log(f"{tag} factor of {name}: block {fact.b}, {len(fact.levels)} levels, "
+            f"{fact.nbytes / 1e9:.3f} GB, built in {build_s * 1e3:.1f} ms; one application "
+            f"{dev_ms:.3f} ms of device behind a covering sleep, {app_ms:.3f} ms by "
+            f"time_ms, {app_host:.3f} ms enqueue; {B.shape[1]} columns {dev7:.3f} ms of "
+            f"device ({host7:.3f} ms enqueue); vs SuperLU rel {err:.3e}")
+        check(err <= CHOLESKY_REL_TOL,
+              f"{tag} {name}: solve {err:.3e} from SuperLU beyond {CHOLESKY_REL_TOL}")
+        del fact
+    B_d = torch.as_tensor(B, device=dev)
+    host_cache, card_cache = {}, {}
+    for i, gain in enumerate(REBUILD_GAINS):
+        warm = i > 0
+        k = NEWTON_SHIFTS.kp // 2 if warm else NEWTON_SHIFTS.kp
+        K = gain * B.T
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        # Twice on the same input: the first call's wall and the second's.
+        walls, given = [], dict(card_cache)
+        for _ in range(2):
+            card_cache = dict(given)
+            t0 = time.perf_counter()
+            card = shift_mod.heuristic_shifts_card(
+                E_op, A_op, NEWTON_SHIFTS.nshifts, k, k, B=B_d,
+                K=torch.as_tensor(K, device=dev), cache=card_cache, warm_start=warm)
+            walls.append(time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        starts = dict(host_cache)
+        t0 = time.perf_counter()
+        host = heuristic_shifts_host(E, A, NEWTON_SHIFTS.nshifts, k, k, B=B, K=K,
+                                     lu_cache=host_cache, warm_start=warm)
+        host_s = time.perf_counter() - t0
+        hs, cs = np.sort_complex(np.asarray(host)), np.sort_complex(np.asarray(card))
+        gap = float(np.max(np.abs(hs - cs) / np.abs(hs))) if len(hs) == len(cs) else math.inf
+        spread = ""
+        if warm:
+            rng = np.random.default_rng(21)
+            moved = {key: v + 1e-15 * rng.standard_normal(v.shape)
+                     for key, v in starts.items() if key.startswith("warm")}
+            again = np.sort_complex(np.asarray(heuristic_shifts_host(
+                E, A, NEWTON_SHIFTS.nshifts, k, k, B=B, K=K,
+                lu_cache=dict(starts, **moved), warm_start=True)))
+            spread = (f"; the host's own set moves {np.max(np.abs(hs - again) / np.abs(hs)):.3e} "
+                      "for a warm start moved by 1e-15 an entry")
+        log(f"{tag} rebuild K = {gain:g}·Bᵀ, {k} + {k} steps, {'warm' if warm else 'cold'}: "
+            f"card {walls[0]:.3f} s, again {walls[1]:.3f} s (peak {peak:.3f} GB above the "
+            f"{base / 1e9:.3f} GB held), "
+            f"host {host_s:.3f} s; shift sets {gap:.3e} apart{spread}")
+        check(gap <= SHIFT_SET_TOL, f"{tag}: shift sets {gap:.3e} apart")
+    log(f"{tag} phase 21 took {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+
+
 def checked(tag, kern, run):
     """``run()``, a full-size main path that returns its launches, under a
     `ProductLog`; then the kernels against their plain versions at every
@@ -3569,10 +3712,13 @@ def main() -> int:
                          "complex banded cores, the full Newton on row shards)")
     ap.add_argument("--krylov-only", action="store_true",
                     help="build the kernels and run only phase 20 (the fused CG iteration)")
+    ap.add_argument("--shifts-only", action="store_true",
+                    help="build the kernels and run only phase 21 (the closed-loop Penzl "
+                         "rebuild on the card)")
     args = ap.parse_args()
     only = args.newton_only or args.host_only or args.dense_only or args.gmres_only \
         or args.mixed_only or args.parareal_only or args.sharded_only or args.uncached_only \
-        or args.krylov_only
+        or args.krylov_only or args.shifts_only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3608,6 +3754,8 @@ def main() -> int:
             log(f"[launches] K1 {k1_launches}; K2 {k2_launches}")
         elif args.krylov_only:
             phase_fused(E, A, B, C, dev)
+        elif args.shifts_only:
+            phase_shifts_card(E, A, B, dev)
         elif args.uncached_only:
             k1_launches, k2_launches = {}, {}
             phase_uncached(E, A, B, C, dev, k1_launches, k2_launches)
@@ -3669,6 +3817,7 @@ def main() -> int:
             k1_err = max(k1_err, errs.get("K1", 0.0))
             k2_err = max(k2_err, errs.get("K2", 0.0))
             _, cg_err, cg_t = phase_fused(E, A, B, C, dev)
+            phase_shifts_card(E, A, B, dev)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -85,7 +85,8 @@ from .adi import _in_dtype, _residual_norm
 from .problems import DRESolution
 from .residuals import residual_gale_lowrank, residual_gare_lowrank
 from .rosenbrock_lowrank import _ros2_rhs1, _ros2_rhs2, feedback_K, time_grid
-from .shifts import heuristic_shifts_host
+from ..ops.dia_cholesky import NotDefinite
+from .shifts import heuristic_shifts_card, heuristic_shifts_host
 
 
 #: Block size of the block-Jacobi preconditioner.
@@ -896,8 +897,23 @@ def solve_gdre_ros2_compiled(prob, *, dt: float, shifts, cfg: CompiledConfig,
 # --- Kleinman–Newton for the GARE ------------------------------------------------
 
 #: Host seconds that `solve_gare_newton_compiled` spent computing closed-loop
-#: Penzl shifts (the sparse LUs and Arnoldi runs on the host) in this process.
+#: Penzl shifts in this process (on the card route, up to the read of the
+#: last Hessenberg matrix, which waits for the device).
 shift_rebuild_seconds = 0.0
+#: Closed-loop Penzl shift rebuilds of `solve_gare_newton_compiled` in this
+#: process, and those of them that took the card route
+#: (`heuristic_shifts_card`).
+shift_rebuilds = 0
+shift_rebuilds_card = 0
+
+
+def _shifts_on_card(E, A) -> bool:
+    """Whether the Newton's closed-loop rebuilds take the card route
+    (`heuristic_shifts_card`): symmetric unsharded `DiaOp`s on a CUDA
+    device.  Everything else keeps `heuristic_shifts_host`, which draws the
+    same set on every rank of a mesh."""
+    return (isinstance(E, DiaOp) and isinstance(A, DiaOp) and E.device.type == "cuda"
+            and E.symmetric is True and A.symmetric is True and mesh_of(E) is None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1037,7 +1053,10 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
     shifts (and the shifted cores) when the feedback has moved by more than
     ``shift_reuse_tol`` in relative Frobenius norm.  Closed-loop shift sets
     are pair-encoded on banded (`DiaOp`) cores and made real (``-|μ|``) on
-    any other core.
+    any other core.  They are computed on the card (`heuristic_shifts_card`)
+    for a symmetric unsharded `DiaOp` pencil on a CUDA device
+    (`_shifts_on_card`) and on the host (`heuristic_shifts_host`) otherwise,
+    or from the first ``E`` or ``−A`` that turns out not definite on.
 
     **Equilibration.**  ``GARE(E, A, G, Q)`` is solved as
     ``GARE(E, A, G/σ, σQ)`` with ``σ = √(‖G‖/‖Q‖)`` and the solution
@@ -1077,7 +1096,7 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
     units, ADI iteration counts, the θ log, line-search λs, the shift
     rebuild count, ``newton_steps`` and ``converged``.
     """
-    global shift_rebuild_seconds
+    global shift_rebuild_seconds, shift_rebuilds, shift_rebuilds_card
     E, A, Q = prob.E, prob.A, prob.Q
     n = prob.n  # global: the rows of a shard are Q.L's
     dtype, dev = prob.G.L.dtype, prob.G.L.device
@@ -1139,6 +1158,8 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
         lus = None
         shifts = None
         shift_lu_cache = {}  # open-loop splu(E)/splu(A) shared by rebuilds
+        on_card = _shifts_on_card(E, A)
+        card_cache = {}  # the card route's warm starts
     else:
         shifts = encode_shifts_for_operator(shifts, A)
         check_shift_pairing(shifts)
@@ -1157,7 +1178,7 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
     probing = True       # hump detection armed until the first accepted step
     just_staged = True   # suppress line search across stage boundaries
     history, adi_iters, thetas, lams = [], [], [], []
-    shift_rebuilds = 0
+    rebuilds = 0
     K_at_shifts = None
     stalls = 0
     converged = False
@@ -1328,30 +1349,44 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
                     or (stale_rel > shift_reuse_tol and asymptotic))):
                 # Rebuilds after the first run half-depth Arnoldi,
                 # warm-started from the previous rebuild's dominant Ritz
-                # vector (kept in the LU cache).
+                # vector (kept in the route's cache).
                 rebuilt_before = shifts is not None
                 kp_r = max(12, strat.kp // 2) if rebuilt_before else strat.kp
                 km_r = max(12, strat.km // 2) if rebuilt_before else strat.km
-                Bt_whole = B_whole if theta == 1.0 else (
-                    _in_dtype(math.sqrt(theta), dtype) * B_whole)
-                # In K's own (row-major) layout: the host products of the
-                # Arnoldi round as the unsharded run's do.
-                K_whole = _whole_rows(E, K.T).T.contiguous()
+                # Release the old shifted cores before the rebuild: the card
+                # route's factors take their place, and the build theirs.
+                lus = None
+                sv = None
                 t0 = time.perf_counter()
-                sv = heuristic_shifts_host(
-                    E_sp, A_sp, strat.nshifts, kp_r, km_r,
-                    B=Bt_whole.cpu().numpy(), K=K_whole.cpu().numpy(),
-                    lu_cache=shift_lu_cache, warm_start=rebuilt_before)
+                if on_card:
+                    try:
+                        sv = heuristic_shifts_card(
+                            E, A, strat.nshifts, kp_r, km_r, B=Bt, K=K,
+                            cache=card_cache, warm_start=rebuilt_before)
+                        shift_rebuilds_card += 1
+                    except NotDefinite as err:
+                        on_card = False  # the host route for the rest of the solve
+                        warnings.warn(f"closed-loop shifts on the host route: {err}")
+                if sv is None:
+                    Bt_whole = B_whole if theta == 1.0 else (
+                        _in_dtype(math.sqrt(theta), dtype) * B_whole)
+                    # In K's own (row-major) layout: the host products of
+                    # the Arnoldi round as the unsharded run's do.
+                    K_whole = _whole_rows(E, K.T).T.contiguous()
+                    sv = heuristic_shifts_host(
+                        E_sp, A_sp, strat.nshifts, kp_r, km_r,
+                        B=Bt_whole.cpu().numpy(), K=K_whole.cpu().numpy(),
+                        lu_cache=shift_lu_cache, warm_start=rebuilt_before)
                 shift_rebuild_seconds += time.perf_counter() - t0
+                shift_rebuilds += 1
                 shifts = _shift_buffer(sv, dtype, strat.nshifts,
                                        real_only=not pair_shifts,
                                        pair_encode=pair_shifts)
                 _same_on_every_rank(shifts, dev)
-                lus = None  # release the old shifted cores before the build
                 lus = build_step_shift_solvers(E, A, shifts, _krylov_for(shifts),
                                                block_cache=block_cache)
                 K_at_shifts = K
-                shift_rebuilds += 1
+                rebuilds += 1
 
         X_prev, res_norm_prev = X, res_norm
         just_staged = False
@@ -1388,5 +1423,5 @@ def solve_gare_newton_compiled(prob, *, shifts, cfg: CompiledConfig,
     return X, {"residuals": history, "adi_iters": adi_iters,
                "abstol": abstol / sigma, "sigma": sigma,
                "converged": converged, "thetas": thetas,
-               "linesearch_lams": lams, "shift_rebuilds": shift_rebuilds,
+               "linesearch_lams": lams, "shift_rebuilds": rebuilds,
                "newton_steps": newton_steps}

@@ -6,7 +6,10 @@
   Ritz values of ``E⁻¹A`` and ``A⁻¹E``, on the operators' device;
 * `Cyclic(inner_or_values)`, `Wrapped(func, inner)` — combinators;
 * `heuristic_shifts_host` — the same Penzl shifts on the host with SciPy's
-  sparse LU (the compiled paths' set-up).
+  sparse LU (the compiled paths' set-up);
+* `heuristic_shifts_card` — the closed-loop ones on the card, through
+  block-tridiagonal Cholesky factors of a symmetric-definite DIA pencil (the
+  compiled Newton's rebuilds).
 
 Subspace assembly, orthonormalization (`orth`, an SVD) and the Galerkin
 projection run on the operators' device; the small nonsymmetric
@@ -31,8 +34,9 @@ from ..ops.operators import as_operator, restrict
 from ..ops.shifted import default_inner_alg
 from ..utils.timers import timeit
 
-#: Host reads of the device Arnoldi (`_arnoldi_ritz`): one per
-#: Gram–Schmidt coefficient and one per norm.
+#: Host reads of the device Arnoldi (`_arnoldi_card`: the host API's
+#: `Heuristic` and the compiled Newton's card-route rebuilds): one per
+#: step's norm and one per Hessenberg matrix.
 arnoldi_syncs = 0
 #: Operator applications of the device Arnoldi — each one inner solve.
 arnoldi_matvecs = 0
@@ -207,31 +211,10 @@ class ProjectionOracle(BufferedOracle):
 
 
 def _arnoldi_ritz(matvec, n: int, k: int, dtype, device, desc: str) -> np.ndarray:
-    """k-step Arnoldi from the all-ones start vector, with repeated MGS, on
-    the device; Ritz values of the Hessenberg matrix.  Every coefficient is
-    read back to the host (`arnoldi_syncs`)."""
-    global arnoldi_syncs, arnoldi_matvecs
-    H = np.zeros((k + 1, k))
-    b0 = torch.ones((n,), dtype=dtype, device=device)
-    V = [b0 / torch.linalg.norm(b0)]
-    for j in range(k):
-        w = matvec(V[j])
-        arnoldi_matvecs += 1
-        for _ in range(2):  # repeated MGS
-            for i in range(j + 1):
-                g = torch.vdot(V[i], w)
-                H[i, j] += float(g)
-                w = w - V[i] * g
-        beta = float(torch.linalg.norm(w))
-        arnoldi_syncs += 2 * (j + 1) + 1
-        H[j + 1, j] = beta
-        if beta == 0.0:
-            k = j + 1
-            H = H[: k + 1, :k]
-            break
-        V.append(w / beta)
-    ritz = np.linalg.eigvals(H[:k, :k])
-    return stabilize_ritz_values(ritz, desc)
+    """k-step Arnoldi from the all-ones start vector (`_arnoldi_card`, no
+    warm start), in ``dtype`` on ``device``; Ritz values of the Hessenberg
+    matrix."""
+    return _arnoldi_card(matvec, k, desc, torch.ones((n,), dtype=dtype, device=device))
 
 
 def heuristic(R: np.ndarray, nshifts: int) -> list:
@@ -348,6 +331,94 @@ def heuristic_shifts_host(E_sparse, A_sparse, nshifts: int, kp: int, km: int,
         descs = ("E⁻¹F", "F⁻¹E")
     Rp = arnoldi(fwd, kp, descs[0], "warm_fwd")
     Rm = arnoldi(bwd, km, descs[1], "warm_bwd")
+    R = np.concatenate([Rp, 1.0 / Rm])
+    return heuristic(R, nshifts)
+
+
+def _arnoldi_card(matvec, k: int, desc: str, start: torch.Tensor, cache=None,
+                  key=None) -> np.ndarray:
+    """k-step Arnoldi with repeated MGS from ``start``, on its device and in
+    its dtype (`heuristic_shifts_host`'s on the host): the Hessenberg matrix
+    stays there and is read once, besides one read of each ``β`` for the
+    breakdown test (`arnoldi_syncs`).  With ``cache``, the dominant Ritz
+    vector lifted to Rⁿ is kept there under ``key`` (on the device) as the
+    next call's start.  Ritz values of the Hessenberg matrix."""
+    global arnoldi_syncs, arnoldi_matvecs
+    n = start.shape[0]
+    V = start.new_zeros((k + 1, n))
+    H = start.new_zeros((k + 1, k))
+    V[0] = start / torch.linalg.vector_norm(start)
+    for j in range(k):
+        w = matvec(V[j])
+        arnoldi_matvecs += 1
+        coeffs = []
+        for _ in range(2):  # repeated modified Gram-Schmidt
+            for i in range(j + 1):
+                g = torch.dot(V[i], w)
+                coeffs.append(g)
+                w = w - g * V[i]
+        H[:j + 1, j] = torch.stack(coeffs).view(2, j + 1).sum(0)
+        beta = torch.linalg.vector_norm(w)
+        H[j + 1, j] = beta
+        arnoldi_syncs += 1
+        if float(beta) == 0.0:
+            k = j + 1
+            break
+        V[j + 1] = w / beta
+    arnoldi_syncs += 1
+    ritz, vecs = np.linalg.eig(H[:k, :k].cpu().numpy())
+    if cache is not None:
+        dom = int(np.argmax(np.abs(ritz)))
+        y = V[:k].T @ torch.as_tensor(vecs[:, dom].real.copy(), dtype=V.dtype,
+                                      device=V.device)
+        ny = torch.linalg.vector_norm(y)
+        # Kept only where finite and nonzero, without a read: else the
+        # previous start (all ones where there was none) stays.
+        keep = cache.get(key, torch.ones_like(y))
+        cache[key] = torch.where(torch.isfinite(ny) & (ny > 0), y / ny, keep)
+    return stabilize_ritz_values(ritz, desc)
+
+
+def heuristic_shifts_card(E, A, nshifts: int, kp: int, km: int, B, K,
+                          cache: dict | None = None, warm_start: bool = False) -> list:
+    """`heuristic_shifts_host` with ``B`` and ``K`` on the operators'
+    device: the same closed-loop Penzl shifts from ``kp`` Arnoldi steps on
+    ``E⁻¹F`` and ``km`` on ``F⁻¹E``, ``F = A − BK`` by the same SMW
+    identity, for symmetric-definite `DiaOp`s ``E`` and ``−A``.  The inverses
+    are direct solves through block-tridiagonal Cholesky factors
+    (`ops.dia_cholesky`), built for this call and released after their
+    Arnoldi: ``E``'s before ``A``'s is built.  Float64 whatever the
+    operators' dtype.  ``B (n, m)`` and ``K (m, n)``: tensors on the
+    operators' device.  ``cache``: a dict kept across calls on one pencil
+    for the warm starts (device vectors); ``warm_start`` as in
+    `heuristic_shifts_host`.  Raises `ops.dia_cholesky.NotDefinite` where
+    ``E`` or ``−A`` is not definite.  Returns complex values."""
+    from ..ops.dia_cholesky import dia_cholesky
+
+    f64 = torch.float64
+    E = dataclasses.replace(E, data=E.data.to(f64), data_t=E.data_t.to(f64))
+    A = dataclasses.replace(A, data=A.data.to(f64), data_t=A.data_t.to(f64))
+    B, K = B.to(f64), K.to(f64)
+    ones = torch.ones((E.n,), dtype=f64, device=E.device)
+
+    def start(key):
+        b0 = cache.get(key) if warm_start and cache is not None else None
+        return ones if b0 is None else b0
+
+    fact = dia_cholesky(E)
+    Rp = _arnoldi_card(lambda x: fact.solve(A.mm(x) - B @ (K @ x)), kp, "E⁻¹F",
+                       start("warm_fwd"), cache, "warm_fwd")
+    fact = None  # E's factor goes before A's is built
+    fact = dia_cholesky(A, negate=True)
+    # F⁻¹ = A⁻¹ + A⁻¹B (I − K A⁻¹B)⁻¹ K A⁻¹  (SMW)
+    AinvB = fact.solve(B)
+    Sinv = torch.linalg.inv(torch.eye(B.shape[1], dtype=f64, device=B.device) - K @ AinvB)
+
+    def bwd(x):
+        y = fact.solve(E.mm(x))
+        return y + AinvB @ (Sinv @ (K @ y))
+
+    Rm = _arnoldi_card(bwd, km, "F⁻¹E", start("warm_bwd"), cache, "warm_bwd")
     R = np.concatenate([Rp, 1.0 / Rm])
     return heuristic(R, nshifts)
 

@@ -10,6 +10,13 @@ steps, θ-stages, shift rebuilds and ADI iteration counts, ``X`` and ``K``
 within 1e-9 (the Krylov tolerance 10·eps amplified by the ADI and the
 Newton iteration) and each residual within 1e-8 relative, or within the
 residual's rounding floor n·eps·‖Q‖ once it has reached it.
+
+The port's card route for the closed-loop shifts (`heuristic_shifts_card`,
+taken on the card by symmetric unsharded DIA pencils) is held here against
+the JAX package's host route too, with its predicate patched so CPU tensors
+take it: the Newton to the same tolerances, and the shift sets at 1e-8
+relative after sorting (the same Arnoldi, with direct solves that differ
+only in rounding).
 """
 
 import importlib
@@ -40,6 +47,7 @@ jcomp = importlib.import_module("differentialriccatiequations_jl_tpu.models.comp
 jprob = importlib.import_module("differentialriccatiequations_jl_tpu.models.problems")
 jres = importlib.import_module("differentialriccatiequations_jl_tpu.models.residuals")
 jlr = importlib.import_module("differentialriccatiequations_jl_tpu.lowrank")
+jshifts = importlib.import_module("differentialriccatiequations_jl_tpu.models.shifts")
 
 N = 128
 CFG = tcomp.CompiledConfig(maxiters=120, r_res=32)
@@ -227,6 +235,51 @@ def test_newton_observer_events(benchmark_solves):
     assert [s[2] for s in steps] == info["residuals"]
     assert obs.events.count("continuation") == 1
     assert obs.events.count("line search") == len(info["linesearch_lams"])
+
+
+def test_newton_card_route_matches_jax(benchmark_solves, monkeypatch):
+    """The benchmark configuration with the port's rebuilds on the card
+    route against the JAX package's Newton, whose rebuilds run on the
+    host."""
+    _, jout, tp, jp, _ = benchmark_solves
+    monkeypatch.setattr(tcomp, "_shifts_on_card", lambda E, A: True)
+    before = (tcomp.shift_rebuilds, tcomp.shift_rebuilds_card)
+    tout = tcomp.solve_gare_newton_compiled(
+        tp, shifts=tcomp.PerStepHeuristic(10, 12, 12), cfg=CFG, capacity=CAPACITY,
+        reltol=1e-10)
+    it, ij = tout[1], jout[1]
+    rebuilds = it["shift_rebuilds"]
+    assert rebuilds > 0
+    assert tcomp.shift_rebuilds - before[0] == tcomp.shift_rebuilds_card - before[1] == rebuilds
+    np.testing.assert_allclose(it["thetas"], ij["thetas"], rtol=1e-12)
+    np.testing.assert_allclose(it["linesearch_lams"], ij["linesearch_lams"], rtol=1e-12)
+    _check_solve(tout, jout, tp, jp)
+
+
+@pytest.mark.parametrize("n", [371, 1357])
+def test_card_shifts_match_jax_host_shifts(n):
+    """`heuristic_shifts_card` against the JAX package's
+    `heuristic_shifts_host` on the Rail surrogate (two and four levels of
+    the block Cholesky): the open loop cold, then the closed loop
+    ``K = 10·Bᵀ`` warm-started from it at half depth, as the Newton's
+    rebuilds run."""
+    from differentialriccatiequations_jl_tpu_torch.ops.dia import dia_pencil
+
+    E, A, B, _ = rail_surrogate(n)
+    E_op, A_op = dia_pencil(E, A, device="cpu")
+    jcache, tcache = {}, {}
+    for warm, K, k in ((False, np.zeros((B.shape[1], n)), 30), (True, 10.0 * B.T, 15)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ref = jshifts.heuristic_shifts_host(E, A, 20, k, k, B=B, K=K, lu_cache=jcache,
+                                                warm_start=warm)
+            got = tshifts.heuristic_shifts_card(E_op, A_op, 20, k, k, B=torch.as_tensor(B),
+                                                K=torch.as_tensor(K), cache=tcache,
+                                                warm_start=warm)
+        ref = np.sort_complex(np.asarray(ref))
+        got = np.sort_complex(np.asarray(got))
+        assert got.shape == ref.shape == (20,)
+        assert np.max(np.abs(got - ref) / np.abs(ref)) <= 1e-8, f"warm={warm}"
 
 
 def test_newton_block_ell_matches_dia(fixed_shift_solves):
